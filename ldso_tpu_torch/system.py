@@ -1,0 +1,675 @@
+"""System orchestration: the synchronous odometry conductor.
+
+Port of the synchronous subset of ``ldso_tpu/system.py``: every numeric
+stage (pyramid, tracking, tracing, activation, BA, marginalization
+assembly) is a torch function over fixed-capacity tensors on one device;
+this module is the host state machine that owns the frame loop, the
+keyframe decision, the point lifecycle (immature → active → marginalized
+/ dropped), window management and trajectory bookkeeping.
+
+Per frame: pyramid → coarse track vs. reference KF → epipolar trace of
+the immature bank (one ``frame_step.fused_step``) → KF decision. Per
+keyframe: insert → activate immature points → windowed photometric BA →
+flag + marginalize points and frames into the dense prior → select new
+candidates → rebuild the tracker reference.
+
+The reference's device futures, deferred finishes and stacked drains
+exist for its remote TPU link and for the async modes; in sync mode its
+finish runs at once, which is what this conductor does, in the same order.
+Not ported yet (each raises ``NotImplementedError``): async mapping,
+pipelined and batched tracking, corner-biased seeding
+(``selector.corner_fraction > 0``) and loop closure / relocalization.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from ldso_tpu_torch import frame_step, lifecycle, select, tracker
+from ldso_tpu_torch.ba import marginal, solve
+from ldso_tpu_torch.config import LdsoConfig
+from ldso_tpu_torch.core import bank as bank_mod
+from ldso_tpu_torch.core import window as win_mod
+from ldso_tpu_torch.core.window import Window, pattern
+from ldso_tpu_torch.init2f import CoarseInitializer
+from ldso_tpu_torch.kernels.interp import bilinear33, in_bounds
+from ldso_tpu_torch.kernels.pyramid import build_pyramid
+from ldso_tpu_torch.math import lie
+
+
+def _project_points_to_slot(win: Window, slot: int):
+    """Project every active point into window slot ``slot``'s frame:
+    (uv' [P,2], idepth' [P], color' [P], valid [P]) — the semi-dense
+    reference map for the coarse tracker."""
+    T = win.current_pose()
+    T_rel = T[slot] @ lie.se3_inverse(T)[win.p_host.long()]
+    fx, fy, cx, cy = win.c[0], win.c[1], win.c[2], win.c[3]
+    xh = torch.stack([(win.p_uv[:, 0] - cx) / fx, (win.p_uv[:, 1] - cy) / fy,
+                      torch.ones_like(win.p_uv[:, 0])], dim=-1)
+    X = (T_rel[:, :3, :3] @ xh[..., None])[..., 0] + T_rel[:, :3, 3] * win.p_idepth[:, None]
+    z = X[..., 2]
+    okz = z > 1e-6
+    zs = torch.where(okz, z, torch.ones_like(z))
+    uvn = torch.stack([fx * X[..., 0] / zs + cx, fy * X[..., 1] / zs + cy], dim=-1)
+    h, w = win.images.shape[1], win.images.shape[2]
+    # residual-less points are outliers awaiting their drop: exclude them
+    valid = win.p_valid & okz & in_bounds(uvn, w, h, 3.0) & (win.p_host != slot) \
+        & torch.any(win.res_mask, dim=-1)
+    color = bilinear33(win.images[slot], uvn)[..., 0]
+    return uvn, win.p_idepth / zs, color, valid
+
+
+def _sample_pattern(img3, uv, outlier_sum: float = 2500.0):
+    """Host-pattern colors + static gradient weights for new points."""
+    hit = bilinear33(img3, uv[:, None, :] + pattern(uv.device)[None])  # [N,8,3]
+    gsq = torch.sum(hit[..., 1:3] ** 2, dim=-1)
+    return hit[..., 0], torch.sqrt(outlier_sum / (outlier_sum + gsq))
+
+
+def _seed_program(pyr0, pyr1, pyr2, cfg: LdsoConfig, seed: int) -> dict:
+    """Candidate seeding: gradient selection + 8-pattern color/weight
+    sampling (the corner half waits for ``loop/orb.detect``)."""
+    gsq1 = torch.sum(pyr1[..., 1:3] ** 2, dim=-1)
+    gsq2 = torch.sum(pyr2[..., 1:3] ** 2, dim=-1)
+    uv, _, valid = select.select_pixels(
+        pyr0, gsq1, gsq2, num_want=int(cfg.selector.desired_immature_density),
+        block=cfg.selector.block, pot=5,
+        min_cut=cfg.selector.min_grad_hist_cut,
+        min_add=cfg.selector.min_grad_hist_add,
+        down_weight=cfg.selector.grad_down_weight_per_level, seed=seed)
+    color, weight = _sample_pattern(pyr0, uv,
+                                    outlier_sum=float(cfg.ba.outlier_th_sum_component))
+    return dict(sel_uv=uv, sel_valid=valid, sel_color=color, sel_weight=weight)
+
+
+def _pad_rows(a: np.ndarray, cap: int, fill=0.0) -> np.ndarray:
+    """Pad axis 0 to ``cap``."""
+    out = np.full((cap,) + a.shape[1:], fill, a.dtype)
+    out[: len(a)] = a[:cap]
+    return out
+
+
+@dataclasses.dataclass
+class FrameRecord:
+    frame_id: int
+    timestamp: float
+    ref_kf: int                   # kf_id of the tracking reference
+    T_from_ref: np.ndarray        # [4,4] camFromRef (SE3)
+    is_kf: bool
+
+
+@dataclasses.dataclass
+class KeyframeRecord:
+    kf_id: int
+    frame_id: int
+    timestamp: float
+    T_cw: np.ndarray              # [4,4] worldToCam (refreshed by BA; final at marg)
+    slot: int                     # window slot while active; -1 after
+    in_window: bool = True
+
+
+@dataclasses.dataclass
+class PoseEdge:
+    """Relative-pose constraint recorded at marginalization."""
+
+    kf_a: int
+    kf_b: int
+    T_ab: np.ndarray              # [4,4] SE3: T_a · T_b⁻¹
+    kind: str = "odom"
+    scale: float = 1.0
+
+
+class FullSystem:
+    """Synchronous monocular direct odometry on one torch device."""
+
+    def __init__(self, cfg: LdsoConfig, intr, w: int, h: int, *, device,
+                 async_mapping: bool = False, pipeline_depth: int = 0,
+                 batch_size: int = 1):
+        if async_mapping:
+            raise NotImplementedError("async_mapping: ROADMAP P9 (async modes)")
+        if pipeline_depth > 0:
+            raise NotImplementedError("pipeline_depth > 0: ROADMAP P9 (async modes)")
+        if batch_size > 1:
+            raise NotImplementedError("batch_size > 1: ROADMAP P9 (async modes)")
+        if cfg.selector.corner_fraction > 0:
+            raise NotImplementedError(
+                "selector.corner_fraction > 0 needs loop/orb.detect: first ROADMAP "
+                "item of the port queue; set corner_fraction=0.0")
+        self.cfg = cfg
+        self.device = torch.device(device)
+        L = cfg.shapes.pyr_levels
+        m = 1 << (L - 1)
+        self.w = (w // m) * m
+        self.h = (h // m) * m
+        self.intr = np.asarray(intr, dtype=np.float32)
+        self.intr_t = torch.as_tensor(self.intr, device=self.device)
+
+        self.win = win_mod.empty_window(cfg, self.h, self.w, self.intr, self.device)
+        self.HM, self.bM = marginal.empty_prior(cfg.shapes.state_dim)
+        self.slot_kf: List[Optional[int]] = [None] * cfg.shapes.max_frames
+        self.kfs: dict = {}
+        self.frames: List[FrameRecord] = []
+        self.pose_edges: List[PoseEdge] = []
+        # persistent map: kf_id -> dict(xyz_cam [n,3], color [n]) of points
+        # archived (in host-camera coordinates) when they left the window
+        self.map_points: dict = {}
+        self.bank = bank_mod.empty_bank(cfg.shapes.max_immature, self.device)
+
+        self.initializer = CoarseInitializer(cfg, self.intr, self.device)
+        self.initialized = False
+        self.init_failed = False
+        self.is_lost = False
+        self._init_frames: List[tuple] = []   # (frame_id, ts, T_first_to_cur)
+
+        self.next_kf_id = 0
+        self.frame_count = 0
+        self.track_ref: Optional[tracker.TrackerRef] = None
+        self.ref_kf: Optional[int] = None
+        self.last_rel_ab = np.zeros(2, dtype=np.float32)
+        self.T_last_cw: Optional[np.ndarray] = None
+        self.T_prelast_cw: Optional[np.ndarray] = None
+        self.first_coarse_rmse = -1.0
+        # prediction state: refToNew of the last two frames relative to the
+        # tracking ref the last dispatch used, and that ref's pose
+        eye = torch.eye(4, dtype=torch.float32, device=self.device)
+        self._T_last_rel = eye
+        self._T_prelast_rel = eye
+        self._T_ref_cw_dev = eye
+        self._T_ref_cw_np = np.eye(4)
+        self._ref_version = 0            # bumped at every tracker-ref swap
+        self._dispatch_ref_version = 0
+        self._dispatch_T_ref_dev = eye
+        self._n_active_cache = 0
+        self._min_act_dist = cfg.selector.min_act_dist
+        self.last_idepth_hessian: Optional[np.ndarray] = None
+
+    # loop closure is not ported: attaching it must fail loudly
+    @property
+    def loop_closing(self):
+        return None
+
+    @loop_closing.setter
+    def loop_closing(self, value):
+        if value is not None:
+            raise NotImplementedError("loop closure: ROADMAP P10")
+
+    @property
+    def on_keyframe(self):
+        return None
+
+    @on_keyframe.setter
+    def on_keyframe(self, value):
+        if value is not None:
+            raise NotImplementedError("keyframe hooks (loop closure): ROADMAP P10")
+
+    # ------------------------------------------------------------------
+    # Public API
+    # ------------------------------------------------------------------
+
+    @property
+    def immatures(self) -> bank_mod.Bank:
+        """Host snapshot of the immature bank."""
+        return bank_mod.to_host(self.bank)
+
+    def add_frame(self, img, timestamp: Optional[float] = None,
+                  exposure: float = 1.0) -> dict:
+        fid = self.frame_count
+        self.frame_count += 1
+        ts = float(timestamp) if timestamp is not None else float(fid)
+        # uint8 frames stay uint8 up to the pyramid build, which widens them
+        img = np.ascontiguousarray(np.asarray(img)[: self.h, : self.w])
+        if img.dtype != np.uint8:
+            img = img.astype(np.float32, copy=False)
+        img_t = torch.from_numpy(img).to(self.device)
+
+        if self.initialized and not self.is_lost:
+            return self._track_single(fid, ts, float(exposure), img_t)
+        if self.is_lost:
+            return dict(status="lost", frame_id=fid)
+        pyr, _ = build_pyramid(img_t, self.cfg.shapes.pyr_levels)
+        return self._initializer_step(fid, ts, float(exposure), pyr)
+
+    def export_trajectory(self):
+        """(timestamps [N], T_cw [N,4,4]) for every tracked frame — frame
+        poses composed onto their reference KF's final pose."""
+        ts_out, poses = [], []
+        for fr in self.frames:
+            kf = self.kfs.get(fr.ref_kf)
+            if kf is None:
+                continue
+            ts_out.append(fr.timestamp)
+            poses.append(fr.T_from_ref @ kf.T_cw)
+        return np.asarray(ts_out), np.asarray(poses)
+
+    # ------------------------------------------------------------------
+    # Initialization path
+    # ------------------------------------------------------------------
+
+    def _initializer_step(self, fid, ts, exposure, pyr) -> dict:
+        init = self.initializer
+        if init.frame_id_first is None:
+            gsq = [torch.sum(p[..., 1:3] ** 2, dim=-1) for p in pyr]
+            init.set_first(pyr, gsq)
+            init.frame_id_first = fid
+            self._init_frames = [(fid, ts, np.eye(4))]
+            self._first_pyr = pyr
+            self._first_exposure = exposure
+            self._first_ts = ts
+            return dict(status="init_first", frame_id=fid)
+
+        st = init.track(pyr)
+        self._init_frames.append((fid, ts, init.T.cpu().numpy().astype(np.float64)))
+        if st["done"]:
+            self._init_from_initializer(fid, ts, exposure, pyr)
+            return dict(status="initialized", frame_id=fid, **st)
+        # bootstrap divergence → restart from scratch on the next frame
+        if init.frames_tracked > 30 and not init.snapped:
+            self.init_failed = True
+            init.frame_id_first = None
+            init.frames_tracked = 0
+            return dict(status="init_reset", frame_id=fid)
+        return dict(status="initializing", frame_id=fid, **st)
+
+    def _init_from_initializer(self, fid, ts, exposure, pyr):
+        cfg = self.cfg
+        res = self.initializer.results()
+        rescale = res["rescale"]
+
+        # first KF at world origin, second at the bootstrap pose
+        kf0 = self._new_kf(self._init_frames[0][0], self._first_ts, np.eye(4),
+                           self._first_pyr[0], self._first_exposure, aff_ab=(0.0, 0.0))
+        ab1 = res["ab"]
+        kf1 = self._new_kf(fid, ts, res["T_first_to_new"], pyr[0], exposure,
+                           aff_ab=(float(ab1[0]), float(ab1[1])))
+
+        # points hosted by KF0, padded to capacity (pad slot P is dropped)
+        order = np.flatnonzero(np.asarray(res["good"]))
+        P = cfg.shapes.max_points
+        k = min(len(order), P)
+        order = order[:k]
+        uv = _pad_rows(np.asarray(res["uv"], np.float32)[order], P)
+        idepth = _pad_rows(np.asarray(res["idepth"], np.float32)[order], P, 1.0)
+        slots = np.full(P, P, np.int64)
+        slots[:k] = np.arange(k)
+        uv_t = torch.as_tensor(uv, device=self.device)
+        color, weight = _sample_pattern(
+            self.win.images[kf0.slot], uv_t,
+            outlier_sum=float(cfg.ba.outlier_th_sum_component))
+        self.win = win_mod.add_points(self.win, slots, kf0.slot, uv_t, color, weight,
+                                      idepth)
+
+        # polish with one BA round
+        self._run_ba()
+        self._refresh_kf_poses()
+
+        # record the in-between bootstrap frames (translations rescaled)
+        for i, (f_id, f_ts, T) in enumerate(self._init_frames):
+            T = T.copy()
+            T[:3, 3] /= rescale
+            self.frames.append(FrameRecord(f_id, f_ts, kf0.kf_id, T, is_kf=(i == 0)))
+        self.frames[-1] = FrameRecord(fid, ts, kf1.kf_id, np.eye(4), True)
+
+        self._seed_new_kf(kf1.slot, pyr)
+        self._update_tracker_ref(kf1)
+        self.T_last_cw = np.asarray(self.kfs[kf1.kf_id].T_cw)
+        self.T_prelast_cw = np.eye(4)
+        self._resync_prediction(self._T_ref_cw_np)
+        self.initialized = True
+
+    # ------------------------------------------------------------------
+    # Steady-state tracking
+    # ------------------------------------------------------------------
+
+    def _reexpress_carries(self):
+        """The ref swapped since the last dispatch: re-express the
+        prediction pair relative to the new ref,
+        T_rel_new = T_rel_old · T_oldref_cw · T_newref_cw⁻¹."""
+        if self._dispatch_ref_version == self._ref_version:
+            return
+        D = lie.se3_mul(self._dispatch_T_ref_dev, lie.se3_inverse(self._T_ref_cw_dev))
+        self._T_last_rel = lie.se3_mul(self._T_last_rel, D)
+        self._T_prelast_rel = lie.se3_mul(self._T_prelast_rel, D)
+        self._dispatch_ref_version = self._ref_version
+        self._dispatch_T_ref_dev = self._T_ref_cw_dev
+
+    def _track_single(self, fid, ts, exposure, img) -> dict:
+        ref_kf_id = self.ref_kf
+        T_ref_np = self._T_ref_cw_np
+        self._reexpress_carries()
+        ab0 = torch.as_tensor(self.last_rel_ab, device=self.device)
+        out = frame_step.fused_step(
+            img, self.track_ref, self._T_last_rel, self._T_prelast_rel, ab0,
+            self.bank, self.win.T_eval, self.win.x, self.win.exposure,
+            self._T_ref_cw_dev, self.intr_t, exposure, self.cfg)
+        self.bank = out.bank
+        self._T_prelast_rel = self._T_last_rel
+        self._T_last_rel = out.T
+        return self._process_tracked(fid, ts, exposure, out, ref_kf_id, T_ref_np)
+
+    def _resync_prediction(self, T_ref_cw: np.ndarray):
+        """Re-express the prediction pair relative to ``T_ref_cw`` from the
+        host trajectory state (initialization)."""
+        inv_ref = np.linalg.inv(T_ref_cw)
+        T_l = self.T_last_cw @ inv_ref if self.T_last_cw is not None else np.eye(4)
+        T_p = self.T_prelast_cw @ inv_ref if self.T_prelast_cw is not None else T_l
+        f32 = dict(dtype=torch.float32, device=self.device)
+        self._T_last_rel = torch.as_tensor(T_l, **f32)
+        self._T_prelast_rel = torch.as_tensor(T_p, **f32)
+        self._dispatch_T_ref_dev = torch.as_tensor(np.asarray(T_ref_cw, np.float64), **f32)
+        self._dispatch_ref_version = self._ref_version
+
+    def _process_tracked(self, fid, ts, exposure, out, ref_kf_id, T_ref_cw) -> dict:
+        """Consume one tracking result: lost check, trajectory record,
+        KF decision, keyframe build."""
+        diag = out.diag.cpu().numpy()           # the per-frame readback
+        rmse0 = float(diag[frame_step.DIAG_RMSE0])
+        if self.first_coarse_rmse < 0:
+            self.first_coarse_rmse = rmse0
+        if not np.isfinite(rmse0) or rmse0 > 4.0 * max(self.first_coarse_rmse, 1e-3):
+            self.is_lost = True
+            return dict(status="lost", frame_id=fid, rmse=rmse0)
+
+        T_rel = diag[frame_step.DIAG_T:].reshape(4, 4).astype(np.float64)
+        T_cw = T_rel @ T_ref_cw
+        self.last_rel_ab = diag[frame_step.DIAG_A_REL:frame_step.DIAG_B_REL + 1] \
+            .astype(np.float32)
+        self.frames.append(FrameRecord(fid, ts, ref_kf_id, T_rel, False))
+
+        flow = diag[frame_step.DIAG_FLOW_T:frame_step.DIAG_FLOW_R + 1]
+        delta = float(diag[frame_step.DIAG_KF_DELTA])
+        need_kf = delta > 1.0 or 2.0 * self.first_coarse_rmse < rmse0
+        status = dict(status="tracked", frame_id=fid, rmse=rmse0,
+                      flow=flow.tolist(), need_kf=bool(need_kf),
+                      n_active=self._n_active_cache)
+        if need_kf:
+            aff = (float(diag[frame_step.DIAG_A_ABS]), float(diag[frame_step.DIAG_B_ABS]))
+            self._make_keyframe(fid, ts, exposure, out.pyr, T_cw, aff, status,
+                                self.frames[-1])
+        self.T_prelast_cw = self.T_last_cw
+        self.T_last_cw = T_cw
+        return status
+
+    # ------------------------------------------------------------------
+    # Keyframe path
+    # ------------------------------------------------------------------
+
+    def _make_keyframe(self, fid, ts, exposure, pyr, T_cw, aff_ab, status,
+                       frame_rec: FrameRecord):
+        """Build a keyframe and finish it at once (the frame was already
+        traced by its fused step)."""
+        cfg = self.cfg
+        kf = self._new_kf(fid, ts, T_cw, pyr[0], exposure, aff_ab)
+        frame_rec.ref_kf = kf.kf_id
+        frame_rec.T_from_ref = np.eye(4)
+        frame_rec.is_kf = True
+        self.win = win_mod.connect_new_frame(self.win, kf.slot)
+
+        mad_px = self._update_min_act_dist()
+        self.win, act_drop, act_stats = lifecycle.kf_activate(
+            self.win, self.bank, self.intr_t, kf.slot, mad_px, cfg)
+        self.bank = bank_mod.drop_rows(self.bank, act_drop)
+        seed = self._dispatch_seed(pyr)
+
+        active_rec = [(kid, s) for s, kid in enumerate(self.slot_kf) if kid is not None]
+        self.win, stats = solve.run_ba(self.win, self.HM, self.bM, cfg,
+                                       anchor_slot=self._oldest_slot())
+        self.last_idepth_hessian = stats.idepth_hessian
+        self._update_tracker_ref(kf)
+        self._seed_new_kf(kf.slot, pyr, seed=seed)
+        self._finish_kf(kf, stats, act_stats.cpu().numpy(), active_rec, status)
+
+    def _finish_kf(self, kf, stats: solve.BAStats, act, active_rec, status):
+        """Host bookkeeping of a keyframe from its BA results: pose
+        records, frame flagging, point and frame marginalization."""
+        n_act = int(act[lifecycle.ST_N_ACT])
+        status.update(n_imm=int(act[lifecycle.ST_N_IMM]),
+                      n_imm_good=int(act[lifecycle.ST_N_IMM_GOOD]),
+                      n_imm_q=int(act[lifecycle.ST_N_IMM_Q]))
+        self._refresh_kf_poses(stats.poses, active_rec)
+        if self.ref_kf == kf.kf_id:
+            self._T_ref_cw_np = stats.poses[kf.slot].copy()
+
+        marg_slots = self._flag_frames_for_marginalization(stats, active_rec, kf.slot)
+        n_goners = self._remove_and_marginalize_points(stats, marg_slots)
+        self._n_active_cache = int(act[lifecycle.ST_N_ACTIVE]) - n_goners
+        status.update(n_act=n_act, n_drop=n_goners,
+                      e_per_res=stats.energy_photo / max(stats.num_residuals, 1),
+                      e_prior=stats.energy_final - stats.energy_photo)
+        for slot in marg_slots:
+            self._marginalize_frame(slot, stats)
+        if marg_slots:
+            dying = torch.zeros(self.cfg.shapes.max_frames, dtype=torch.bool,
+                                device=self.device)
+            dying[list(marg_slots)] = True
+            self.bank = bank_mod.drop_hosted(self.bank, dying)
+        status.update(ba_energy=stats.energy_final, ba_iters=stats.iterations,
+                      n_res=stats.num_residuals, kf_id=kf.kf_id,
+                      n_window=sum(k is not None for k in self.slot_kf),
+                      min_act_dist=self._min_act_dist)
+
+    def _free_slot(self) -> Optional[int]:
+        for i, k in enumerate(self.slot_kf):
+            if k is None:
+                return i
+        return None
+
+    def _new_kf(self, fid, ts, T_cw, img3, exposure, aff_ab) -> KeyframeRecord:
+        slot = self._free_slot()
+        if slot is None:
+            raise RuntimeError("no free window slot")
+        kf = KeyframeRecord(self.next_kf_id, fid, ts, np.asarray(T_cw, np.float64), slot)
+        self.next_kf_id += 1
+        self.slot_kf[slot] = kf.kf_id
+        self.kfs[kf.kf_id] = kf
+        self.win = win_mod.insert_frame(
+            self.win, slot, torch.as_tensor(np.asarray(T_cw, np.float32)), img3,
+            exposure, aff_ab=aff_ab)
+        return kf
+
+    def _run_ba(self) -> solve.BAStats:
+        self.win, stats = solve.run_ba(self.win, self.HM, self.bM, self.cfg,
+                                       anchor_slot=self._oldest_slot())
+        self.last_idepth_hessian = stats.idepth_hessian
+        return stats
+
+    def _oldest_slot(self) -> int:
+        act = [(kid, s) for s, kid in enumerate(self.slot_kf) if kid is not None]
+        return min(act)[1] if act else 0
+
+    def _refresh_kf_poses(self, poses: Optional[np.ndarray] = None,
+                          active_rec: Optional[list] = None):
+        """Write BA poses back to the host records of the frames that BA solved."""
+        T = (np.asarray(poses, dtype=np.float64) if poses is not None
+             else self.win.current_pose().cpu().numpy().astype(np.float64))
+        rec = (active_rec if active_rec is not None
+               else [(kid, s) for s, kid in enumerate(self.slot_kf) if kid is not None])
+        for kid, slot in rec:
+            if self.slot_kf[slot] == kid:
+                self.kfs[kid].T_cw = T[slot]
+
+    # ------------------------------------------------------------------
+    # Window management (reference: flagFramesForMarginalization)
+    # ------------------------------------------------------------------
+
+    def _flag_frames_for_marginalization(self, stats: solve.BAStats,
+                                         active_rec: List[tuple],
+                                         newest_slot: int) -> List[int]:
+        cfg = self.cfg
+        current = sorted((kid, s) for s, kid in enumerate(self.slot_kf) if kid is not None)
+        if len(current) <= cfg.window.max_kf:
+            return []
+        newest2 = {s for _, s in current[-2:]}
+        cand = [s for kid, s in sorted(active_rec)
+                if self.slot_kf[s] == kid and s not in newest2 and s != newest_slot]
+        p_host, p_valid, vp = stats.p_host, stats.p_valid, stats.valid_pair
+
+        flagged: List[int] = []
+        n_keep = len(current)
+        # rule 1: almost no points visible in the newest KF, or a large
+        # affine gap to it (reference: <5% in-view, maxLogAffFac)
+        x = stats.x
+        for s in cand:
+            if n_keep - len(flagged) <= cfg.window.min_kf:
+                continue
+            hosted = p_valid & (p_host == s)
+            n_hosted = int(hosted.sum())
+            vis = int((vp[:, newest_slot] & hosted).sum()) / n_hosted if n_hosted else 1.0
+            aff_gap = abs(float(x[s, 6] - x[newest_slot, 6]))
+            if n_hosted == 0 or vis < cfg.window.min_inlier_visible_frac \
+                    or aff_gap > cfg.window.max_log_aff_fac:
+                flagged.append(s)
+        # rule 2: drop the frame crowded among the others but far from the newest
+        T = np.asarray(stats.poses, dtype=np.float64)
+        while n_keep - len(flagged) > cfg.window.max_kf:
+            centers = {s: -T[s, :3, :3].T @ T[s, :3, 3] for s in cand}
+            centers[newest_slot] = -T[newest_slot, :3, :3].T @ T[newest_slot, :3, 3]
+            best, best_score = None, -np.inf
+            for s in cand:
+                if s in flagged:
+                    continue
+                d_new = np.linalg.norm(centers[s] - centers[newest_slot])
+                crowd = sum(1.0 / (1e-5 + np.linalg.norm(centers[s] - centers[o]))
+                            for o in cand if o != s and o not in flagged)
+                score = np.sqrt(d_new) * crowd
+                if score > best_score:
+                    best, best_score = s, score
+            if best is None:
+                break
+            flagged.append(best)
+        return flagged
+
+    def _remove_and_marginalize_points(self, stats: solve.BAStats,
+                                       marg_slots: List[int]) -> int:
+        """Points that lost their residuals or whose host dies: fold the
+        well-constrained ones into the prior, drop the rest. Returns the
+        number removed."""
+        cfg = self.cfg
+        p_valid, p_host, res_mask = stats.p_valid, stats.p_host, stats.res_mask
+        goners = (np.isin(p_host, marg_slots) & p_valid) \
+            | ((res_mask.sum(axis=1) == 0) & p_valid)
+        if not goners.any():
+            return 0
+        # rows the BA tail already retired (junk) count as removed but are
+        # not dropped again
+        junk = stats.junk
+        hdd = stats.idepth_hessian
+        # maxRelBaseline gate: only points observed with enough relative
+        # baseline × idepth are folded into the prior; the rest drop
+        T = np.asarray(stats.poses, dtype=np.float64)
+        C = -np.einsum("fji,fj->fi", T[:, :3, :3], T[:, :3, 3])
+        dist = np.linalg.norm(C[p_host][:, None, :] - C[None, :, :], axis=-1)
+        rel_b = np.max(np.where(res_mask, dist, 0.0), axis=1) * stats.p_idepth
+        marg_mask = goners & (hdd > cfg.ba.min_idepth_hessian) \
+            & (rel_b > cfg.ba.min_rel_baseline)
+        self._archive_map_points(stats, goners & (hdd > cfg.ba.min_idepth_hessian))
+        if marg_mask.any():
+            self.HM, self.bM = marginal.marginalize_points(
+                self.win, marg_mask, self.HM, self.bM, cfg)
+        self.win = win_mod.drop_points(self.win, torch.as_tensor(goners & ~junk))
+        return int(goners.sum())
+
+    def _archive_map_points(self, stats: solve.BAStats, mask: np.ndarray):
+        """Snapshot dying points into the persistent map, in host-camera
+        coordinates grouped by host kf_id."""
+        if not mask.any():
+            return
+        uv = stats.p_uv[mask]
+        idep = np.maximum(stats.p_idepth[mask], 1e-6)
+        color = stats.p_color[mask]
+        hosts = stats.p_host[mask]
+        fx, fy, cx, cy = (float(v) for v in stats.c)
+        z = 1.0 / idep
+        xyz = np.stack([(uv[:, 0] - cx) / fx * z, (uv[:, 1] - cy) / fy * z, z], axis=-1)
+        for s in np.unique(hosts):
+            kid = self.slot_kf[s]
+            if kid is None:
+                continue
+            m = hosts == s
+            prev = self.map_points.get(kid)
+            if prev is None:
+                self.map_points[kid] = dict(xyz_cam=xyz[m], color=color[m])
+            else:
+                prev["xyz_cam"] = np.concatenate([prev["xyz_cam"], xyz[m]])
+                prev["color"] = np.concatenate([prev["color"], color[m]])
+
+    def _marginalize_frame(self, slot: int, stats: solve.BAStats):
+        cfg = self.cfg
+        kid = self.slot_kf[slot]
+        kf = self.kfs[kid]
+        T = np.asarray(stats.poses, dtype=np.float64)
+        others = sorted((self.slot_kf[s], s) for s in range(len(self.slot_kf))
+                        if self.slot_kf[s] is not None and s != slot)
+        kf.T_cw = T[slot]
+        kf.in_window = False
+        kf.slot = -1
+        for okid, oslot in others[: cfg.loop.max_edges_per_kf]:
+            self.pose_edges.append(PoseEdge(kid, okid, T[slot] @ np.linalg.inv(T[oslot])))
+        aff_prior = np.array([0.0] * 6 + [cfg.ba.affine_prior_a, cfg.ba.affine_prior_b])
+        # the diagonal prior pins ABSOLUTE a,b to zero: in delta coordinates
+        # its gradient at Δ=0 is λ·x_zero
+        aff_delta = np.asarray(stats.x_zero[slot], dtype=np.float64)
+        aff_delta[:6] = 0.0
+        self.HM, self.bM = marginal.marginalize_frame(
+            slot, self.HM, self.bM, frame_prior_diag=aff_prior,
+            frame_prior_delta=aff_delta)
+        self.win = win_mod.remove_frame(self.win, slot)
+        self.slot_kf[slot] = None
+
+    # ------------------------------------------------------------------
+    # Immature-point lifecycle
+    # ------------------------------------------------------------------
+
+    def _update_min_act_dist(self) -> float:
+        """Adaptive activation-spacing ladder (reference: currentMinActDist):
+        the radius grows when the window is over-full and shrinks when
+        starved. Returns the occupancy-cell size in pixels (2·mad)."""
+        cfg = self.cfg
+        n_now = float(self._n_active_cache)
+        desired = min(cfg.selector.desired_point_density, float(cfg.shapes.max_points))
+        mad = self._min_act_dist
+        if n_now < desired * 0.66:
+            mad -= 0.8
+        elif n_now < desired * 0.8:
+            mad -= 0.5
+        elif n_now < desired * 0.9:
+            mad -= 0.2
+        if n_now > desired:
+            mad += 0.2
+        self._min_act_dist = mad = float(np.clip(mad, 0.0, 4.0))
+        return 2.0 * mad
+
+    def _dispatch_seed(self, pyr) -> dict:
+        return _seed_program(pyr[0], pyr[1], pyr[2], self.cfg,
+                             seed=int(self.cfg.seed + (self.frame_count & 3)))
+
+    def _seed_new_kf(self, slot: int, pyr, seed: Optional[dict] = None):
+        """Candidate reseed for a keyframe: scatter the fresh candidates
+        into free bank slots."""
+        if seed is None:
+            seed = self._dispatch_seed(pyr)
+        dying = torch.zeros(self.cfg.shapes.max_frames, dtype=torch.bool,
+                            device=self.device)
+        drop, slots, s_uv, s_col, s_wgt, s_corner = lifecycle.compute_seed_patch(
+            self.bank, seed, slot, dying, self.cfg)
+        self.bank = bank_mod.apply_patch(self.bank, drop, slots, s_uv, s_col, s_wgt,
+                                         slot, s_corner)
+
+    # ------------------------------------------------------------------
+    # Tracker reference
+    # ------------------------------------------------------------------
+
+    def _update_tracker_ref(self, kf: KeyframeRecord):
+        """Rebuild the tracking reference from the keyframe's window state."""
+        uv, idep, color, valid = _project_points_to_slot(self.win, kf.slot)
+        self.track_ref = tracker.make_tracker_ref(
+            uv, idep, color, valid, self.cfg.shapes.pyr_levels,
+            exposure=self.win.exposure[kf.slot], aff_ab=self.win.x[kf.slot, 6:8])
+        self.ref_kf = kf.kf_id
+        self._T_ref_cw_np = np.asarray(kf.T_cw, np.float64).copy()
+        self._T_ref_cw_dev = self.win.current_pose(kf.slot)
+        self._ref_version += 1
+        self.last_rel_ab = np.zeros(2, dtype=np.float32)

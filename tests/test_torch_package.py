@@ -1,0 +1,100 @@
+"""The port as a package: no JAX at import, the copied framework-neutral
+modules equal their originals, and the state converter round-trips."""
+
+import dataclasses
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+import ldso_tpu.config as jcfg
+import ldso_tpu.eval.ate as jate
+import ldso_tpu.io.synthetic as jsyn
+import ldso_tpu_torch.config as tcfg
+import ldso_tpu_torch.eval.ate as tate
+import ldso_tpu_torch.io.synthetic as tsyn
+from ldso_tpu_torch import convert
+
+
+def test_import_pulls_in_no_jax():
+    code = ("import sys; import ldso_tpu_torch, ldso_tpu_torch.system, "
+            "ldso_tpu_torch.convert, ldso_tpu_torch.kernels.pallas_pyramid; "
+            "bad = sorted(m for m in sys.modules "
+            "if m.split('.')[0] in ('jax', 'jaxlib', 'ldso_tpu')); "
+            "print(bad); sys.exit(1 if bad else 0)")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def _dc_tree(obj):
+    """Dataclass instance -> nested (class name, field, default) tuples."""
+    if dataclasses.is_dataclass(obj):
+        return (type(obj).__name__,
+                tuple((f.name, _dc_tree(getattr(obj, f.name)))
+                      for f in dataclasses.fields(obj)))
+    return obj
+
+
+@pytest.mark.parametrize("name", ["default", "realtime", "fast", "tiny"])
+def test_config_copy_equals_original(name):
+    # field for field, default for default, preset for preset
+    assert _dc_tree(tcfg.preset(name)) == _dc_tree(jcfg.preset(name))
+    assert tcfg.PATTERN == jcfg.PATTERN
+    assert tcfg.PATTERN_PADDING == jcfg.PATTERN_PADDING
+    assert tcfg.Shapes().state_dim == jcfg.Shapes().state_dim
+
+
+def test_synthetic_copy_renders_identical_frames():
+    kw = dict(w=96, h=64, n=3, seed=5, traj_kind="forward_arc", supersample=1)
+    a, b = jsyn.SyntheticDataset(**kw), tsyn.SyntheticDataset(**kw)
+    for i in range(3):
+        ia, ib = a.get_image(i), b.get_image(i)
+        assert ia[0].tobytes() == ib[0].tobytes()
+        assert ia[1:] == ib[1:]
+        assert a.get_idepth(i).tobytes() == b.get_idepth(i).tobytes()
+    np.testing.assert_array_equal(a.poses_w_c, b.poses_w_c)
+    np.testing.assert_array_equal(a.intrinsics(), b.intrinsics())
+    assert tuple(a.calib.out_intr) == tuple(b.calib.out_intr)
+
+
+def test_ate_copy_equals_original():
+    rng = np.random.default_rng(1)
+    gt = rng.normal(size=(40, 3))
+    est = 0.7 * gt @ np.linalg.qr(rng.normal(size=(3, 3)))[0].T + 0.01 * rng.normal(size=(40, 3))
+    ra, ea = jate.ate_rmse(est, gt)
+    rb, eb = tate.ate_rmse(est, gt)
+    assert ra == rb
+    np.testing.assert_array_equal(ea, eb)
+    for x, y in zip(jate.umeyama(est, gt), tate.umeyama(est, gt)):
+        np.testing.assert_array_equal(x, y)
+
+
+def test_convert_round_trip_window_bank_ref():
+    from ldso_tpu.config import preset
+    from ldso_tpu.core import bank as jbank
+    from ldso_tpu.core import window as jwin
+    from ldso_tpu import tracker as jtracker
+
+    cfg = preset("tiny")
+    rng = np.random.default_rng(0)
+    win = jwin.empty_window(cfg, 16, 32, np.asarray([30.0, 30.0, 15.5, 7.5], np.float32))
+    bank = jbank.empty_bank(cfg.shapes.max_immature)
+    n = 300
+    ref = jtracker.make_tracker_ref(
+        rng.random((n, 2), np.float32) * 30, rng.random(n, np.float32) + 0.1,
+        rng.random(n, np.float32) * 255, rng.random(n) > 0.3, 3)
+    for kind, obj in (("window", win), ("bank", bank), ("tracker_ref", ref)):
+        arrays = {f: (tuple(np.asarray(a) for a in v) if isinstance(v, tuple)
+                      else np.asarray(v)) for f, v in obj._asdict().items()}
+        back = convert.to_numpy(convert.from_numpy(kind, arrays))
+        for f, v in arrays.items():
+            vs = v if isinstance(v, tuple) else (v,)
+            bs = back[f] if isinstance(back[f], tuple) else (back[f],)
+            for x, y in zip(vs, bs):
+                # bool stays bool, integers become int32, floats float32
+                assert y.dtype == (np.bool_ if x.dtype == np.bool_ else
+                                   np.int32 if np.issubdtype(x.dtype, np.integer)
+                                   else np.float32), (kind, f)
+                np.testing.assert_array_equal(x.astype(y.dtype), y)

@@ -1,0 +1,108 @@
+"""The slice as a whole: the port's sync FullSystem against the JAX
+package's on the same synthetic sequence (preset "tiny" with
+selector.corner_fraction = 0, the one setting this slice changes).
+
+30 frames rendered without supersampling: the supersampled 24-frame
+sequence leaves the JAX reference itself at 5.5% of extent, above the 5%
+bound of tests/test_system.py; here both sit near 3.4%, with margin."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+from ldso_tpu.config import preset as jpreset
+from ldso_tpu.system import FullSystem as JaxSystem
+from ldso_tpu_torch.config import preset
+from ldso_tpu_torch.eval.ate import ate_rmse
+from ldso_tpu_torch.io.synthetic import SyntheticDataset
+from ldso_tpu_torch.system import FullSystem
+
+N_FRAMES = 30
+
+
+def _cfg(p):
+    base = p("tiny")
+    return base.replace(selector=dataclasses.replace(base.selector, corner_fraction=0.0))
+
+
+def _ate_pct(system, ds):
+    _, poses = system.export_trajectory()
+    ids = [fr.frame_id for fr in system.frames][: len(poses)]
+    gt = np.stack([ds.gt_pose_c_w(i) for i in ids])
+    est_c = np.stack([-(P[:3, :3].T @ P[:3, 3]) for P in poses])
+    gt_c = np.stack([-(P[:3, :3].T @ P[:3, 3]) for P in gt])
+    rmse, _ = ate_rmse(est_c, gt_c, with_scale=True)
+    return 100.0 * rmse / np.linalg.norm(gt_c.max(0) - gt_c.min(0)), len(poses)
+
+
+def _drive(system, ds):
+    statuses = []
+    for i in range(ds.num_frames):
+        st = system.add_frame(*ds.get_image(i))
+        statuses.append(st["status"])
+    return statuses
+
+
+@pytest.fixture(scope="module")
+def runs():
+    ds = SyntheticDataset(w=320, h=240, n=N_FRAMES, traj_kind="forward_arc", seed=0,
+                          supersample=1)
+    jsys = JaxSystem(_cfg(jpreset), ds.intrinsics(), ds.w, ds.h)
+    tsys = FullSystem(_cfg(preset), ds.intrinsics(), ds.w, ds.h, device="cpu")
+    return ds, (jsys, _drive(jsys, ds)), (tsys, _drive(tsys, ds))
+
+
+def test_both_initialize_within_one_frame(runs):
+    _, (js, jst), (ts, tst) = runs
+    assert js.initialized and ts.initialized
+    assert abs(jst.index("initialized") - tst.index("initialized")) <= 1
+
+
+def test_both_track_every_frame(runs):
+    ds, (js, jst), (ts, tst) = runs
+    for system, statuses in ((js, jst), (ts, tst)):
+        assert "lost" not in statuses and not system.is_lost
+        assert _ate_pct(system, ds)[1] == ds.num_frames
+
+
+def test_keyframe_counts_close(runs):
+    _, (js, _), (ts, _) = runs
+    assert len(ts.kfs) >= 3
+    assert abs(len(js.kfs) - len(ts.kfs)) <= 2
+
+
+def test_ate_bounds_and_agreement(runs):
+    ds, (js, _), (ts, _) = runs
+    a, _ = _ate_pct(js, ds)
+    b, _ = _ate_pct(ts, ds)
+    assert a < 5.0 and b < 5.0, (a, b)          # tests/test_system.py's bound
+    assert abs(a - b) < 1.0, (a, b)             # percentage points
+
+
+def test_state_alive(runs):
+    _, _, (ts, _) = runs
+    assert int(ts.win.p_valid.sum()) > 50
+    assert ts.immatures.valid.sum() > 20
+    n_in = sum(1 for k in ts.kfs.values() if k.in_window)
+    assert n_in <= ts.cfg.window.max_kf + 1
+
+
+@pytest.mark.parametrize("kw", [dict(async_mapping=True), dict(pipeline_depth=2),
+                                dict(batch_size=4), dict(corner_fraction=0.3)])
+def test_unported_modes_raise(kw):
+    cfg = _cfg(preset)
+    if "corner_fraction" in kw:
+        cfg = cfg.replace(selector=dataclasses.replace(cfg.selector, **kw))
+        kw = {}
+    with pytest.raises(NotImplementedError):
+        FullSystem(cfg, np.asarray([200.0, 200.0, 80.0, 60.0]), 160, 120, device="cpu", **kw)
+
+
+def test_attaching_loop_closure_raises():
+    system = FullSystem(_cfg(preset), np.asarray([200.0, 200.0, 80.0, 60.0]), 160, 120,
+                        device="cpu")
+    with pytest.raises(NotImplementedError):
+        system.loop_closing = object()
+    with pytest.raises(NotImplementedError):
+        system.on_keyframe = lambda *a: None
