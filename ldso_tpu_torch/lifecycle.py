@@ -5,12 +5,10 @@ Port of ``ldso_tpu/lifecycle.py``:
     whole window), quality/energy/Hessian gates, the occupancy-cell
     spacing gate, top-``n_want`` selection, and the scatter into free
     window point slots;
-  * :func:`compute_seed_patch` — assigns free bank slots to the fresh
-    gradient candidates after the keyframe's drops and emits the
-    arguments for :func:`ldso_tpu_torch.core.bank.apply_patch`.
-
-The corner-biased seed merge (``corner_fraction > 0``) waits for the
-port of ``loop/orb.detect``.
+  * :func:`compute_seed_patch` — merges the corner and gradient seeds
+    (corner-biased share, 2-px dedup) and assigns free bank slots to them
+    after the keyframe's drops, emitting the arguments for
+    :func:`ldso_tpu_torch.core.bank.apply_patch`.
 """
 
 from __future__ import annotations
@@ -139,24 +137,42 @@ def kf_activate(win: Window, bank: Bank, intr, new_slot: int, mad_px: float,
 def compute_seed_patch(bank: Bank, seed: dict, host_slot: int, dying_mask,
                        cfg: LdsoConfig):
     """Build apply_patch args for a keyframe's bank surgery: drop
-    candidates hosted by dying frames, assign free bank slots (after the
-    drops) to the accepted gradient seeds in rank order.
+    candidates hosted by dying frames, merge corner + gradient seeds
+    (corner-biased fraction, 2-px dedup — reference: makeNewTraces
+    ordering), and assign free bank slots (after the drops) in rank order.
 
     ``seed`` is the ``system._seed_program`` output. Returns (drop_mask [N],
     slots [N] (padded with N = dropped), uv [N,2], color [N,8],
     weight [N,8], is_corner [N])."""
-    if cfg.selector.corner_fraction > 0 and "corner_uv" in seed:
-        raise NotImplementedError(
-            "corner-biased seeding needs loop/orb.detect, which is not ported "
-            "yet (ROADMAP: restore the default corner_fraction)")
     N = bank.capacity
     dev = bank.uv.device
     drop = bank.valid & dying_mask[bank.host_slot.long()]
     valid_after = bank.valid & ~drop
     n_want = torch.clamp(N - torch.sum(valid_after),
                          max=int(cfg.selector.desired_immature_density))
-    uv, col, wgt = seed["sel_uv"], seed["sel_color"], seed["sel_weight"]
-    acc = seed["sel_valid"]
+    s_uv, s_val = seed["sel_uv"], seed["sel_valid"]
+    s_col, s_wgt = seed["sel_color"], seed["sel_weight"]
+
+    if cfg.selector.corner_fraction > 0 and "corner_uv" in seed:
+        c_uv = seed["corner_uv"]
+        # true FAST hits only (detect() marks them with a +1e3 offset)
+        fv = seed["corner_valid"] & (seed["corner_score"] > 1e3)
+        # float32 product truncated, as the reference's int32·float on device
+        n_c = (n_want * cfg.selector.corner_fraction).to(torch.int64)
+        c_acc = fv & (torch.cumsum(fv.to(torch.int64), 0) - 1 < n_c)
+        # gradient picks within 2 px of an accepted corner are duplicates
+        d2 = torch.sum((s_uv[:, None, :] - c_uv[None, :, :]) ** 2, dim=-1)
+        d2 = torch.where(c_acc[None, :], d2, torch.full_like(d2, float("inf")))
+        s_keep = s_val & (torch.amin(d2, dim=1) > 4.0)
+        uv = torch.cat([c_uv, s_uv])
+        col = torch.cat([seed["corner_color"], s_col])
+        wgt = torch.cat([seed["corner_weight"], s_wgt])
+        acc = torch.cat([c_acc, s_keep])
+        is_corner = torch.cat([torch.ones(c_uv.shape[0], dtype=torch.bool, device=dev),
+                               torch.zeros(s_uv.shape[0], dtype=torch.bool, device=dev)])
+    else:
+        uv, col, wgt, acc = s_uv, s_col, s_wgt, s_val
+        is_corner = torch.zeros(s_uv.shape[0], dtype=torch.bool, device=dev)
 
     rank = torch.cumsum(acc.to(torch.int64), 0) - 1
     take = acc & (rank < n_want)
@@ -168,5 +184,5 @@ def compute_seed_patch(bank: Bank, seed: dict, host_slot: int, dying_mask,
     out_uv = scatter_drop(torch.zeros((N, 2), dtype=torch.float32, device=dev), dest, uv)
     out_col = scatter_drop(torch.zeros((N, 8), dtype=torch.float32, device=dev), dest, col)
     out_wgt = scatter_drop(torch.ones((N, 8), dtype=torch.float32, device=dev), dest, wgt)
-    out_corner = torch.zeros(N, dtype=torch.bool, device=dev)
+    out_corner = scatter_drop(torch.zeros(N, dtype=torch.bool, device=dev), dest, is_corner)
     return drop, out_slots, out_uv, out_col, out_wgt, out_corner

@@ -16,14 +16,19 @@ candidates → rebuild the tracker reference.
 The reference's device futures, deferred finishes and stacked drains
 exist for its remote TPU link and for the async modes; in sync mode its
 finish runs at once, which is what this conductor does, in the same order.
-Not ported yet (each raises ``NotImplementedError``): async mapping,
-pipelined and batched tracking, corner-biased seeding
-(``selector.corner_fraction > 0``) and loop closure / relocalization.
+
+Loop closure attaches as in the reference: assign a
+``loop.closing.LoopClosing``'s ``on_keyframe`` to :attr:`on_keyframe`
+(called for every finished keyframe with its pyramid) and the object to
+:attr:`loop_closing` (relocalization of lost frames).
+Not ported yet (each raises ``NotImplementedError``, ROADMAP P9): async
+mapping, pipelined and batched tracking.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import List, Optional
 
 import numpy as np
@@ -38,6 +43,7 @@ from ldso_tpu_torch.core.window import Window, pattern
 from ldso_tpu_torch.init2f import CoarseInitializer
 from ldso_tpu_torch.kernels.interp import bilinear33, in_bounds
 from ldso_tpu_torch.kernels.pyramid import build_pyramid
+from ldso_tpu_torch.loop import orb
 from ldso_tpu_torch.math import lie
 
 
@@ -71,19 +77,29 @@ def _sample_pattern(img3, uv, outlier_sum: float = 2500.0):
 
 
 def _seed_program(pyr0, pyr1, pyr2, cfg: LdsoConfig, seed: int) -> dict:
-    """Candidate seeding: gradient selection + 8-pattern color/weight
-    sampling (the corner half waits for ``loop/orb.detect``)."""
+    """Candidate seeding: corner detection + gradient selection + 8-pattern
+    color/weight sampling for both pools (reference: makeNewTraces =
+    FeatureDetector + PixelSelector + ImmaturePoint ctors)."""
     gsq1 = torch.sum(pyr1[..., 1:3] ** 2, dim=-1)
     gsq2 = torch.sum(pyr2[..., 1:3] ** 2, dim=-1)
+    osum = float(cfg.ba.outlier_th_sum_component)
+    out = {}
+    if cfg.selector.corner_fraction > 0:
+        feats = orb.detect(pyr0, max_features=cfg.loop.max_features,
+                           fast_th=cfg.loop.orb_fast_th)
+        c_color, c_weight = _sample_pattern(pyr0, feats.uv, outlier_sum=osum)
+        out.update(corner_uv=feats.uv, corner_score=feats.score,
+                   corner_valid=feats.valid, corner_color=c_color,
+                   corner_weight=c_weight)
     uv, _, valid = select.select_pixels(
         pyr0, gsq1, gsq2, num_want=int(cfg.selector.desired_immature_density),
         block=cfg.selector.block, pot=5,
         min_cut=cfg.selector.min_grad_hist_cut,
         min_add=cfg.selector.min_grad_hist_add,
         down_weight=cfg.selector.grad_down_weight_per_level, seed=seed)
-    color, weight = _sample_pattern(pyr0, uv,
-                                    outlier_sum=float(cfg.ba.outlier_th_sum_component))
-    return dict(sel_uv=uv, sel_valid=valid, sel_color=color, sel_weight=weight)
+    color, weight = _sample_pattern(pyr0, uv, outlier_sum=osum)
+    out.update(sel_uv=uv, sel_valid=valid, sel_color=color, sel_weight=weight)
+    return out
 
 
 def _pad_rows(a: np.ndarray, cap: int, fill=0.0) -> np.ndarray:
@@ -110,6 +126,11 @@ class KeyframeRecord:
     T_cw: np.ndarray              # [4,4] worldToCam (refreshed by BA; final at marg)
     slot: int                     # window slot while active; -1 after
     in_window: bool = True
+    # full Sim(3) worldToCam from the global pose graph (reference:
+    # Frame::TcwOpti); T_cw above is its center-preserving SE3 projection
+    S_cw_opti: Optional[np.ndarray] = None
+    # filled by the loop-closing subsystem (features, BoW vector)
+    features: Optional[dict] = None
 
 
 @dataclasses.dataclass
@@ -135,10 +156,6 @@ class FullSystem:
             raise NotImplementedError("pipeline_depth > 0: ROADMAP P9 (async modes)")
         if batch_size > 1:
             raise NotImplementedError("batch_size > 1: ROADMAP P9 (async modes)")
-        if cfg.selector.corner_fraction > 0:
-            raise NotImplementedError(
-                "selector.corner_fraction > 0 needs loop/orb.detect: first ROADMAP "
-                "item of the port queue; set corner_fraction=0.0")
         self.cfg = cfg
         self.device = torch.device(device)
         L = cfg.shapes.pyr_levels
@@ -186,25 +203,12 @@ class FullSystem:
         self._n_active_cache = 0
         self._min_act_dist = cfg.selector.min_act_dist
         self.last_idepth_hessian: Optional[np.ndarray] = None
-
-    # loop closure is not ported: attaching it must fail loudly
-    @property
-    def loop_closing(self):
-        return None
-
-    @loop_closing.setter
-    def loop_closing(self, value):
-        if value is not None:
-            raise NotImplementedError("loop closure: ROADMAP P10")
-
-    @property
-    def on_keyframe(self):
-        return None
-
-    @on_keyframe.setter
-    def on_keyframe(self, value):
-        if value is not None:
-            raise NotImplementedError("keyframe hooks (loop closure): ROADMAP P10")
+        # hooks the loop-closing subsystem assigns
+        self.on_keyframe = None
+        self.loop_closing = None
+        # taken by loop closure around its reads and write-backs of the
+        # host registries (slot_kf, kfs, pose_edges), as in the reference
+        self.state_lock = threading.Lock()
 
     # ------------------------------------------------------------------
     # Public API
@@ -228,9 +232,21 @@ class FullSystem:
 
         if self.initialized and not self.is_lost:
             return self._track_single(fid, ts, float(exposure), img_t)
-        if self.is_lost:
+        if self.is_lost and self.loop_closing is None:
             return dict(status="lost", frame_id=fid)
         pyr, _ = build_pyramid(img_t, self.cfg.shapes.pyr_levels)
+        if self.is_lost:
+            # relocalization by BoW + PnP re-anchor
+            rel = self.loop_closing.relocalize(self, pyr)
+            if rel is None:
+                return dict(status="lost", frame_id=fid)
+            self.is_lost = False
+            self.T_last_cw = rel["T_cw"]
+            self.T_prelast_cw = rel["T_cw"].copy()
+            self.first_coarse_rmse = -1.0
+            self._resync_prediction(self._T_ref_cw_np)
+            return dict(status="relocalized", frame_id=fid, anchor_kf=rel["kf_id"],
+                        n_inliers=rel["n_inliers"])
         return self._initializer_step(fid, ts, float(exposure), pyr)
 
     def export_trajectory(self):
@@ -319,6 +335,9 @@ class FullSystem:
         self.T_prelast_cw = np.eye(4)
         self._resync_prediction(self._T_ref_cw_np)
         self.initialized = True
+        if self.on_keyframe is not None:
+            self.on_keyframe(self, kf0, self._first_pyr)
+            self.on_keyframe(self, kf1, pyr)
 
     # ------------------------------------------------------------------
     # Steady-state tracking
@@ -420,11 +439,12 @@ class FullSystem:
         self.last_idepth_hessian = stats.idepth_hessian
         self._update_tracker_ref(kf)
         self._seed_new_kf(kf.slot, pyr, seed=seed)
-        self._finish_kf(kf, stats, act_stats.cpu().numpy(), active_rec, status)
+        self._finish_kf(kf, stats, act_stats.cpu().numpy(), active_rec, status, pyr)
 
-    def _finish_kf(self, kf, stats: solve.BAStats, act, active_rec, status):
+    def _finish_kf(self, kf, stats: solve.BAStats, act, active_rec, status, pyr):
         """Host bookkeeping of a keyframe from its BA results: pose
-        records, frame flagging, point and frame marginalization."""
+        records, frame flagging, point and frame marginalization; then
+        the keyframe hook with the keyframe's pyramid."""
         n_act = int(act[lifecycle.ST_N_ACT])
         status.update(n_imm=int(act[lifecycle.ST_N_IMM]),
                       n_imm_good=int(act[lifecycle.ST_N_IMM_GOOD]),
@@ -449,7 +469,10 @@ class FullSystem:
         status.update(ba_energy=stats.energy_final, ba_iters=stats.iterations,
                       n_res=stats.num_residuals, kf_id=kf.kf_id,
                       n_window=sum(k is not None for k in self.slot_kf),
+                      n_corner_act=int(act[lifecycle.ST_N_CORNER_ACT]),
                       min_act_dist=self._min_act_dist)
+        if self.on_keyframe is not None:
+            self.on_keyframe(self, kf, pyr)
 
     def _free_slot(self) -> Optional[int]:
         for i, k in enumerate(self.slot_kf):

@@ -1,6 +1,7 @@
 """math/lie.py of the port against the JAX package, on the same float32
 inputs (the cases of tests/test_lie.py for SO(3)/SE(3), including the
-small-angle Taylor branches and the near-π log)."""
+small-angle Taylor branches and the near-π log; Sim(3) with its small-θ,
+small-σ and both-small branches, its Jacobian at 0, and quaternions)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -71,3 +72,68 @@ def test_solve33():
     a = np.asarray(jl.solve33(jnp.asarray(A), jnp.asarray(y)))
     b = tl.solve33(torch.from_numpy(A), torch.from_numpy(y)).numpy()
     np.testing.assert_allclose(b, a, rtol=1e-4, atol=1e-5)
+
+
+# ---- Sim(3) and quaternions -------------------------------------------
+
+
+def _sim3_tangents(seed=4, n=64, scale=0.5):
+    rng = np.random.default_rng(seed)
+    tau = (rng.normal(size=(n, 7)) * scale).astype(np.float32)
+    tau[:8, 3:6] *= 1e-5      # small θ (Taylor in θ)
+    tau[8:16, 6] *= 1e-7      # small σ (Taylor in σ)
+    tau[16:24, 3:] *= 1e-7    # both small
+    tau[24:28, 3:] = 0.0      # exactly zero rotation and scale
+    return tau
+
+
+@pytest.mark.parametrize("fn", ["sim3_exp", "sim3_log_of_exp", "sim3_inverse",
+                                "sim3_adjoint", "sim3_mul", "sim3_to_se3",
+                                "sim3_scale", "sim3_rotation"])
+def test_sim3_maps(fn):
+    tau = _sim3_tangents()
+    S = np.array(jl.sim3_exp(jnp.asarray(tau)), np.float32)    # writable copy
+    if fn == "sim3_exp":
+        a, b = _both("sim3_exp", tau)
+    elif fn == "sim3_log_of_exp":
+        a, b = _both("sim3_log", S)
+    elif fn == "sim3_mul":
+        a = np.asarray(jl.sim3_mul(jnp.asarray(S), jnp.asarray(S[::-1])))
+        b = tl.sim3_mul(torch.from_numpy(S), torch.from_numpy(S[::-1].copy())).numpy()
+    else:
+        a, b = _both(fn, S)
+    np.testing.assert_allclose(b, a, **TOL)
+
+
+def test_sim3_unbatched_matches_batched():
+    # one element at a time takes the batch-of-one path
+    tau = _sim3_tangents(5, n=6)
+    for x in tau:
+        a = np.asarray(jl.sim3_exp(jnp.asarray(x)))
+        b = tl.sim3_exp(torch.tensor(x)).numpy()
+        np.testing.assert_allclose(b, a, **TOL)
+        np.testing.assert_allclose(tl.sim3_log(torch.tensor(b)).numpy(),
+                                   np.asarray(jl.sim3_log(jnp.asarray(a))), **TOL)
+
+
+@pytest.mark.parametrize("at", ["zero", "random"])
+def test_sim3_exp_jacfwd(at):
+    # refine_sim3 / refine_pnp / the pose graph differentiate sim3_exp at
+    # ε = 0, the Taylor branch: the Jacobian must be finite and equal JAX's
+    import jax
+
+    x = np.zeros(7, np.float32) if at == "zero" else _sim3_tangents(6, n=1)[0]
+    a = np.asarray(jax.jacfwd(jl.sim3_exp)(jnp.asarray(x)))
+    b = torch.func.jacfwd(tl.sim3_exp)(torch.tensor(x))
+    assert b.dtype == torch.float32
+    assert np.isfinite(b.numpy()).all()
+    np.testing.assert_allclose(b.numpy(), a, **TOL)
+
+
+def test_quaternion_round_trip():
+    R = np.array(jl.so3_exp(jnp.asarray(_tangents(7)[:, 3:])), np.float32)
+    a, b = _both("matrix_to_quat", R)
+    np.testing.assert_allclose(b, a, **TOL)
+    a2, b2 = _both("quat_to_matrix", a)
+    np.testing.assert_allclose(b2, a2, **TOL)
+    np.testing.assert_allclose(b2, R, atol=1e-5)

@@ -19,7 +19,10 @@ from ldso_tpu_torch import convert
 
 def test_import_pulls_in_no_jax():
     code = ("import sys; import ldso_tpu_torch, ldso_tpu_torch.system, "
-            "ldso_tpu_torch.convert, ldso_tpu_torch.kernels.pallas_pyramid; "
+            "ldso_tpu_torch.convert, ldso_tpu_torch.kernels.pallas_pyramid, "
+            "ldso_tpu_torch.loop.orb, ldso_tpu_torch.loop.match, "
+            "ldso_tpu_torch.loop.bow, ldso_tpu_torch.loop.sim3, "
+            "ldso_tpu_torch.loop.posegraph, ldso_tpu_torch.loop.closing; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'ldso_tpu')); "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -69,6 +72,81 @@ def test_ate_copy_equals_original():
     np.testing.assert_array_equal(ea, eb)
     for x, y in zip(jate.umeyama(est, gt), tate.umeyama(est, gt)):
         np.testing.assert_array_equal(x, y)
+
+
+def test_brief_pairs_copy_equals_original():
+    from ldso_tpu.loop import orb as jorb
+    from ldso_tpu_torch.loop import orb as torb
+
+    assert torb.BRIEF_PAIRS.dtype == jorb.BRIEF_PAIRS.dtype
+    np.testing.assert_array_equal(torb.BRIEF_PAIRS, jorb.BRIEF_PAIRS)
+    np.testing.assert_array_equal(torb.FAST_OFFSETS, jorb.FAST_OFFSETS)
+    assert (torb.PATCH_R, torb.DESC_BITS, torb.DESC_BYTES) == \
+        (jorb.PATCH_R, jorb.DESC_BITS, jorb.DESC_BYTES)
+
+
+def _assert_same_vocab(tv, jv):
+    """Port Vocabulary (CPU tensors) == reference Vocabulary, array for array."""
+    assert (tv.k, tv.levels) == (jv.k, jv.levels)
+    for a, b in zip(tv.tables + tv.table_valid + (tv.idf,),
+                    jv.tables + jv.table_valid + (jv.idf,)):
+        a, b = np.asarray(a), np.asarray(b)
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("k,levels,max_train", [(4, 3, 60000), (6, 2, 500)])
+def test_bow_training_copy_equals_original(k, levels, max_train):
+    from ldso_tpu.loop import bow as jbow
+    from ldso_tpu_torch.loop import bow as tbow
+
+    rng = np.random.default_rng(0)
+    desc = rng.integers(0, 256, size=(600, 32), dtype=np.uint8)
+    _assert_same_vocab(tbow.train_vocabulary(desc, k=k, levels=levels, seed=3,
+                                             max_train=max_train),
+                       jbow.train_vocabulary(desc, k=k, levels=levels, seed=3,
+                                             max_train=max_train))
+    bits = rng.integers(0, 2, size=(7, 256)).astype(np.float32)
+    np.testing.assert_array_equal(tbow._pack(bits), jbow._pack(bits))
+
+
+def test_bow_text_converter_copy_equals_original():
+    from ldso_tpu.loop import bow as jbow
+    from ldso_tpu_torch.loop import bow as tbow
+
+    rng = np.random.default_rng(1)
+    desc = rng.integers(0, 256, size=(400, 32), dtype=np.uint8)
+    jv = jbow.train_vocabulary(desc, k=4, levels=3, seed=0)
+    tv = tbow.train_vocabulary(desc, k=4, levels=3, seed=0)
+    text = jbow.save_vocabulary_text(jv)
+    assert tbow.save_vocabulary_text(tv) == text
+    for trunc in (None, 2):
+        _assert_same_vocab(tbow.load_vocabulary_text(text, truncate_levels=trunc),
+                           jbow.load_vocabulary_text(text, truncate_levels=trunc))
+    # a foreign tree with early leaves (tests/test_loop.py's hand-built one)
+    d = [" ".join(str(x) for x in rng.integers(0, 256, 32)) for _ in range(6)]
+    lines = "\n".join(["2 3 0 0", f"0 0 {d[0]} 0", f"0 1 {d[1]} 0.5", f"1 0 {d[2]} 0",
+                       f"1 1 {d[3]} 0.25", f"3 1 {d[4]} 0.75", f"3 1 {d[5]} 1.25"])
+    _assert_same_vocab(tbow.load_vocabulary_text(lines), jbow.load_vocabulary_text(lines))
+
+
+def test_build_edges_copy_equals_original():
+    from ldso_tpu.loop import posegraph as jpg
+    from ldso_tpu.system import PoseEdge as JEdge
+    from ldso_tpu_torch.loop import posegraph as tpg
+    from ldso_tpu_torch.system import PoseEdge as TEdge
+
+    rng = np.random.default_rng(2)
+    raw = [(int(a), int(b), rng.normal(size=(4, 4)), kind)
+           for a, b, kind in zip(rng.integers(0, 9, 12), rng.integers(0, 9, 12),
+                                 ["odom", "loop"] * 6)]
+    kf_index = {k: i for i, k in enumerate([0, 2, 3, 5, 7, 8])}
+    for cap in (16, 4):
+        a = jpg.build_edges([JEdge(*r) for r in raw], kf_index, cap)
+        b = tpg.build_edges([TEdge(*r) for r in raw], kf_index, cap)
+        for x, y in zip(a, b):
+            assert x.dtype == y.dtype
+            np.testing.assert_array_equal(x, y)
 
 
 def test_convert_round_trip_window_bank_ref():

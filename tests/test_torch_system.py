@@ -1,6 +1,7 @@
 """The slice as a whole: the port's sync FullSystem against the JAX
-package's on the same synthetic sequence (preset "tiny" with
-selector.corner_fraction = 0, the one setting this slice changes).
+package's on the same synthetic sequence, at preset "tiny" with
+selector.corner_fraction = 0 (gradient seeds only) and at the preset's
+own corner_fraction (0.3: FAST/Shi-Tomasi corner seeds too).
 
 30 frames rendered without supersampling: the supersampled 24-frame
 sequence leaves the JAX reference itself at 5.5% of extent, above the 5%
@@ -21,9 +22,12 @@ from ldso_tpu_torch.system import FullSystem
 N_FRAMES = 30
 
 
-def _cfg(p):
+def _cfg(p, corner_fraction=0.0):
     base = p("tiny")
-    return base.replace(selector=dataclasses.replace(base.selector, corner_fraction=0.0))
+    if corner_fraction is None:                 # the preset's own value
+        return base
+    return base.replace(selector=dataclasses.replace(base.selector,
+                                                     corner_fraction=corner_fraction))
 
 
 def _ate_pct(system, ds):
@@ -44,35 +48,45 @@ def _drive(system, ds):
     return statuses
 
 
-@pytest.fixture(scope="module")
-def runs():
+def _both_runs(corner_fraction):
     ds = SyntheticDataset(w=320, h=240, n=N_FRAMES, traj_kind="forward_arc", seed=0,
                           supersample=1)
-    jsys = JaxSystem(_cfg(jpreset), ds.intrinsics(), ds.w, ds.h)
-    tsys = FullSystem(_cfg(preset), ds.intrinsics(), ds.w, ds.h, device="cpu")
+    jsys = JaxSystem(_cfg(jpreset, corner_fraction), ds.intrinsics(), ds.w, ds.h)
+    tsys = FullSystem(_cfg(preset, corner_fraction), ds.intrinsics(), ds.w, ds.h,
+                      device="cpu")
     return ds, (jsys, _drive(jsys, ds)), (tsys, _drive(tsys, ds))
 
 
-def test_both_initialize_within_one_frame(runs):
+@pytest.fixture(scope="module")
+def runs():
+    return _both_runs(0.0)
+
+
+@pytest.fixture(scope="module")
+def runs_default():
+    return _both_runs(None)
+
+
+def _check_initialize_within_one_frame(runs):
     _, (js, jst), (ts, tst) = runs
     assert js.initialized and ts.initialized
     assert abs(jst.index("initialized") - tst.index("initialized")) <= 1
 
 
-def test_both_track_every_frame(runs):
+def _check_track_every_frame(runs):
     ds, (js, jst), (ts, tst) = runs
     for system, statuses in ((js, jst), (ts, tst)):
         assert "lost" not in statuses and not system.is_lost
         assert _ate_pct(system, ds)[1] == ds.num_frames
 
 
-def test_keyframe_counts_close(runs):
+def _check_keyframe_counts_close(runs):
     _, (js, _), (ts, _) = runs
     assert len(ts.kfs) >= 3
     assert abs(len(js.kfs) - len(ts.kfs)) <= 2
 
 
-def test_ate_bounds_and_agreement(runs):
+def _check_ate_bounds_and_agreement(runs):
     ds, (js, _), (ts, _) = runs
     a, _ = _ate_pct(js, ds)
     b, _ = _ate_pct(ts, ds)
@@ -80,7 +94,7 @@ def test_ate_bounds_and_agreement(runs):
     assert abs(a - b) < 1.0, (a, b)             # percentage points
 
 
-def test_state_alive(runs):
+def _check_state_alive(runs):
     _, _, (ts, _) = runs
     assert int(ts.win.p_valid.sum()) > 50
     assert ts.immatures.valid.sum() > 20
@@ -88,21 +102,73 @@ def test_state_alive(runs):
     assert n_in <= ts.cfg.window.max_kf + 1
 
 
+def test_both_initialize_within_one_frame(runs):
+    _check_initialize_within_one_frame(runs)
+
+
+def test_both_track_every_frame(runs):
+    _check_track_every_frame(runs)
+
+
+def test_keyframe_counts_close(runs):
+    _check_keyframe_counts_close(runs)
+
+
+def test_ate_bounds_and_agreement(runs):
+    _check_ate_bounds_and_agreement(runs)
+
+
+def test_state_alive(runs):
+    _check_state_alive(runs)
+
+
+@pytest.mark.parametrize("check", [_check_initialize_within_one_frame,
+                                   _check_track_every_frame,
+                                   _check_keyframe_counts_close,
+                                   _check_ate_bounds_and_agreement,
+                                   _check_state_alive],
+                         ids=lambda f: f.__name__[len("_check_"):])
+def test_default_corner_fraction(runs_default, check):
+    # the same asserts as the corner_fraction = 0 cases above
+    assert runs_default[2][0].cfg.selector.corner_fraction == 0.3
+    check(runs_default)
+
+
+def test_default_corner_seeds_reach_the_bank(runs_default):
+    _, (js, _), (ts, _) = runs_default
+    assert int(ts.immatures.is_corner.sum()) > 0
+    assert int(np.asarray(js.immatures.is_corner).sum()) > 0
+
+
+def test_default_preset_builds():
+    cfg = preset("default")
+    assert cfg.selector.corner_fraction > 0
+    system = FullSystem(cfg, np.asarray([200.0, 200.0, 80.0, 60.0]), 160, 128, device="cpu")
+    assert system.on_keyframe is None and system.loop_closing is None
+
+
 @pytest.mark.parametrize("kw", [dict(async_mapping=True), dict(pipeline_depth=2),
                                 dict(batch_size=4), dict(corner_fraction=0.3)])
 def test_unported_modes_raise(kw):
-    cfg = _cfg(preset)
-    if "corner_fraction" in kw:
-        cfg = cfg.replace(selector=dataclasses.replace(cfg.selector, **kw))
-        kw = {}
-    with pytest.raises(NotImplementedError):
+    # the async modes (ROADMAP P9) raise, at corner_fraction 0 and at the
+    # default 0.3 (which is ported: its case checks async mode on top of it)
+    kw = dict(kw)
+    cfg = _cfg(preset, kw.pop("corner_fraction", 0.0))
+    kw = kw or dict(async_mapping=True)
+    with pytest.raises(NotImplementedError, match="P9"):
         FullSystem(cfg, np.asarray([200.0, 200.0, 80.0, 60.0]), 160, 120, device="cpu", **kw)
 
 
 def test_attaching_loop_closure_raises():
+    # a synchronous LoopClosing attaches (ROADMAP P10 landed); the async
+    # worker is ROADMAP P9 and is not in the port
+    from ldso_tpu_torch.loop import closing
+
     system = FullSystem(_cfg(preset), np.asarray([200.0, 200.0, 80.0, 60.0]), 160, 120,
                         device="cpu")
-    with pytest.raises(NotImplementedError):
-        system.loop_closing = object()
-    with pytest.raises(NotImplementedError):
-        system.on_keyframe = lambda *a: None
+    lc = closing.LoopClosing(system.cfg, system.intr)
+    system.on_keyframe = lc.on_keyframe
+    system.loop_closing = lc
+    assert system.loop_closing is lc and system.on_keyframe == lc.on_keyframe
+    with pytest.raises(AttributeError):
+        closing.AsyncLoopClosing
