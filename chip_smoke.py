@@ -9,9 +9,16 @@ Phases, one result line each (any failure raises and exits non-zero):
   1. device: the card's name and power limit, torch/CUDA versions and the
      float32 precision flags;
   2. build: compile every kernel of the main path from ``ldso_tpu_torch/csrc``;
-  3. kernel vs plain: the pyramid kernel against ``build_pyramid_torch``
-     on a rendered bench frame (uint8) and a random float32 image, both
-     640x480 at 5 levels, with CUDA-event timings of both;
+  3. kernel vs plain: the one-launch pyramid kernel against
+     ``build_pyramid_torch`` at every shape the drives below give it
+     (640x480 at B = 1 and at the batch of phase 6 (b), 320x240 loop
+     frames at B = 1), at B = 8 and at the partial-tile size 208x176, on
+     rendered frames (uint8) and random float32 images, at 5 levels; then
+     CUDA-event timings at 640x480 uint8: the
+     kernel's device time at B = 1 and B = 8 (launches queued behind a
+     spin kernel, so the host's launch rate does not pace them), the time
+     of a whole call of the wrapper, the plain version, and the bytes
+     bound computed from the shapes;
   4. main path: sync ``FullSystem`` at the untouched ``preset("default")``
      (corner-biased seeding on) over the 120-frame bench sequence (seed 3,
      corridor, forward_arc, 640x480, uint8), checked against the
@@ -23,7 +30,25 @@ Phases, one result line each (any failure raises and exits non-zero):
      and then on (a synchronous ``LoopClosing(train_after=4)`` attached
      through ``on_keyframe`` / ``loop_closing``), then relocalization on a
      revisited view. The loop-on drive must close >= 1 loop, run the pose
-     graph and keep ATE <= 6% of extent.
+     graph and keep ATE <= 6% of extent;
+  6. async modes, each on a fresh ``FullSystem`` at ``preset("default")``,
+     fed free-running and ended by ``finish_mapping()`` and ``shutdown()``:
+     (a) ``async_mapping=True`` over the first 80 frames of the 640x480
+     bench sequence (cut from 120 to keep the script near ten minutes: the
+     mapping thread also runs in (b) and the per-frame async path in (c),
+     both at full length); (b) ``async_mapping=True, pipeline_depth=8,
+     batch_size=4`` over all 120 ((b) drops the last frame if the tracked
+     frames would otherwise be a multiple of 4, so that the tail flush of
+     fewer than 4 frames runs);
+     (c) ``async_mapping=True`` with an ``AsyncLoopClosing(train_after=4)``
+     over the loop sequence. Each must lose no frame, export a pose per
+     frame, build >= 3 keyframes with >= 1 marginalized, keep ATE <=
+     max(1.5 x the sync ATE of the same sequence in this run, 6%), leave no
+     worker thread alive, and launch the pyramid kernel exactly as often
+     as expected (once per frame; in (b) once per bootstrap frame, per
+     full batch and per tail frame); (c) must close >= 1 loop and run the
+     pose graph. Frames/s (host clock, whole drive with its drain) and the
+     submit-to-pose latency are printed beside the sync drive's.
 Then a JSON line of per-kernel results, the card line again, and as the
 last line ``{"ok": true, "device": {...}}``. There is no CPU path.
 """
@@ -51,6 +76,12 @@ ATE_MAX_PCT = 6.0            # the repo's ATE qualification floor (README)
 # (BENCH_r05.json): sync bench ATE, and the loop pair off -> on
 REF_SYNC_ATE, REF_LOOP_OFF_ATE, REF_LOOP_ON_ATE = 1.93, 3.09, 2.80
 LOOP_FRAMES, LOOP_W, LOOP_H = 240, 320, 240
+PART_W, PART_H = 208, 176    # not a multiple of the kernel's 64x32 tile; 13 wide at level 4
+HBM_BYTES_PER_S = 3.35e12    # H100 SXM, NVIDIA's data sheet
+FP32_FLOPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores, data sheet
+SPIN_CYCLES = 20_000_000     # ~10 ms: holds the stream while the host queues the launches
+BATCH = 4
+N_ASYNC_A = 80               # frames of phase 6 (a)
 
 
 def _card_line() -> str:
@@ -77,6 +108,76 @@ def _time_ms(fn, reps: int = 20, inner: int = 20) -> float:
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b) / inner)
     return statistics.median(times)
+
+
+def _device_ms(fn, n: int = 20, reps: int = 7) -> float:
+    """Median device time per call: ``n`` calls are queued behind a spin
+    kernel that holds the stream, so they run back to back on the card
+    however slowly the host launches them."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(SPIN_CYCLES)
+        a.record()
+        for _ in range(n):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b) / n)
+    return statistics.median(times)
+
+
+def pyramid_bound_ms(b: int, h: int, w: int, levels: int, in_bytes: int) -> tuple:
+    """The least time the card could take for one pyramid build: the
+    larger of its bytes (the frame read once; 12 B of stack and 4 B of gsq
+    written per pixel of every level) over the memory rate and its
+    operations (per pixel 2 subtractions, 2 halvings, 2 products and a
+    sum, and 4 operations per pooled pixel) over the float32 rate."""
+    px = sum((h >> l) * (w >> l) for l in range(levels))
+    t_bytes = b * (h * w * in_bytes + 16 * px) / HBM_BYTES_PER_S
+    t_ops = b * (7 * px + 4 * (px - h * w)) / FP32_FLOPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def check_pyramid(name: str, img, levels: int = LEVELS) -> tuple:
+    """Hold one launch of the pyramid kernel against the plain version on
+    ``img`` ([H, W] or [B, H, W], uint8 or float32, on the card): shapes,
+    |kernel - plain| <= atol + RTOL·|plain|, and exactly one launch.
+    Returns (max|err| of the stacks, max|err| of gsq)."""
+    import torch
+
+    from ldso_tpu_torch.kernels import pallas_pyramid
+    from ldso_tpu_torch.kernels.pyramid import build_pyramid_torch
+
+    n0 = pallas_pyramid.LAUNCHES
+    pyr_k, gsq_k = pallas_pyramid.build_pyramid_cuda(img, levels)
+    if pallas_pyramid.LAUNCHES != n0 + 1:
+        raise RuntimeError(f"one pyramid build must be one launch, counted "
+                           f"{pallas_pyramid.LAUNCHES - n0} on {name}")
+    pyr_p, gsq_p = build_pyramid_torch(img, levels)
+    torch.cuda.synchronize()
+    if any(a.shape != b.shape for a, b in zip(pyr_k + gsq_k, pyr_p + gsq_p)):
+        raise RuntimeError(f"pyramid kernel output shapes differ on {name}")
+    e_pyr = max(float((a - b).abs().max()) for a, b in zip(pyr_k, pyr_p))
+    e_gsq = max(float((a - b).abs().max()) for a, b in zip(gsq_k, gsq_p))
+    ok = all(bool(((a - b).abs() <= atol + RTOL * b.abs()).all())
+             for outs_k, outs_p, atol in ((pyr_k, pyr_p, PYR_ATOL),
+                                          (gsq_k, gsq_p, GSQ_ATOL))
+             for a, b in zip(outs_k, outs_p))
+    if not ok:
+        raise RuntimeError(f"pyramid kernel disagrees on {name}: max|err| pyr "
+                           f"{e_pyr} gsq {e_gsq} (atol {PYR_ATOL} / {GSQ_ATOL}, "
+                           f"rtol {RTOL})")
+    print(f"kernel pyramid vs plain [{name}]: max|err| pyr {e_pyr:.3g}, "
+          f"gsq {e_gsq:.3g} (bounds: atol {PYR_ATOL} / {GSQ_ATOL} + rtol {RTOL}"
+          f"·|plain|)", flush=True)
+    return e_pyr, e_gsq
 
 
 def _render_bench(n: int, w: int = W, h: int = H, seed: int = 3,
@@ -121,6 +222,7 @@ def drive_bench(cfg, ds, frames, dev, sync) -> dict:
 
     system = FullSystem(cfg, ds.intrinsics(), ds.w, ds.h, device=dev)
     t_frames, statuses, n_corner_act = [], [], 0
+    t0 = time.perf_counter()
     for img_np, ts, expo in frames:
         t_a = time.perf_counter()
         st = system.add_frame(img_np, ts, expo)
@@ -130,6 +232,9 @@ def drive_bench(cfg, ds, frames, dev, sync) -> dict:
         n_corner_act += st.get("n_corner_act", 0)
         if st["status"] == "lost":
             raise RuntimeError(f"lost at frame {st['frame_id']}: {st}")
+    system.finish_mapping()
+    system.shutdown()
+    fps_all = len(frames) / (time.perf_counter() - t0)
     if not system.initialized or system.is_lost:
         raise RuntimeError(f"not initialized or lost: {statuses}")
     n_marg = sum(1 for k in system.kfs.values() if not k.in_window)
@@ -143,7 +248,125 @@ def drive_bench(cfg, ds, frames, dev, sync) -> dict:
     return dict(ate=ate, n_tracked=statuses.count("tracked"), n_kf=len(system.kfs),
                 n_marg=n_marg, n_corner_act=n_corner_act,
                 n_init=statuses.index("initialized") + 1,
-                fps=(len(t_frames) - N_WARM) / sum(t_frames[N_WARM:]))
+                fps=(len(t_frames) - N_WARM) / sum(t_frames[N_WARM:]),
+                fps_all=fps_all, latency_ms=list(system.frame_latency_ms))
+
+
+def _pctl(xs, q: float) -> float:
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(round(q * (len(xs) - 1))))]
+
+
+def drive_async(cfg, ds, frames, dev, sync, ate_sync: float, *, batched: bool = False,
+                loop: bool = False) -> dict:
+    """Phase 6: one free-running drive of an async mode on a fresh
+    FullSystem, ended by finish_mapping() and shutdown(). Fails on a lost
+    frame, a missing pose, fewer than 3 keyframes, no marginalization, an
+    ATE above max(1.5 x ``ate_sync``, the floor), a worker thread left
+    alive, or (``loop``) no closure."""
+    import numpy as np
+
+    from ldso_tpu_torch.loop.closing import AsyncLoopClosing
+    from ldso_tpu_torch.system import FullSystem
+
+    mode = dict(async_mapping=True)
+    if batched:
+        mode.update(pipeline_depth=8, batch_size=BATCH)
+    system = FullSystem(cfg, ds.intrinsics(), ds.w, ds.h, device=dev, **mode)
+    threads = [system._map_thread]
+    lc, n_pgo = None, [0]
+    if loop:
+        lc = AsyncLoopClosing(cfg, ds.intrinsics(), train_after=4)
+        threads.append(lc._thread)
+        system.on_keyframe = lc.on_keyframe
+        system.loop_closing = lc
+        run_pose_graph = lc.run_pose_graph
+
+        def counted_pose_graph(s):
+            run_pose_graph(s)
+            n_pgo[0] += 1
+
+        lc.run_pose_graph = counted_pose_graph
+    n_init, n_fed, n_feed = None, 0, len(frames)
+    t0 = time.perf_counter()
+    try:
+        for img_np, ts, expo in frames:
+            if n_fed >= n_feed:
+                break
+            st = system.add_frame(img_np, ts, expo)
+            n_fed += 1
+            if st["status"] == "lost":
+                raise RuntimeError(f"async drive {mode}: lost at frame {n_fed - 1}: {st}")
+            if st["status"] == "initialized":
+                n_init = n_fed
+                if batched and (len(frames) - n_init) % BATCH == 0:
+                    n_feed -= 1        # leave a tail of fewer than BATCH frames
+        system.finish_mapping()
+        if lc is not None:
+            lc.finish()
+            lc.finish_retrain()
+        sync()
+        dt = time.perf_counter() - t0
+    finally:
+        system.shutdown()
+        if lc is not None:
+            lc.shutdown()
+    if any(t is not None and t.is_alive() for t in threads) \
+            or system._map_thread is not None:
+        raise RuntimeError(f"async drive {mode}: a worker thread outlived shutdown()")
+    if n_init is None or system.is_lost:
+        raise RuntimeError(f"async drive {mode}: not initialized or lost")
+    n_poses = len(system.export_trajectory()[1])
+    if n_poses != n_fed or system._pending or system._fbuf:
+        raise RuntimeError(f"async drive {mode}: {n_poses} poses for {n_fed} frames fed")
+    n_marg = sum(1 for k in system.kfs.values() if not k.in_window)
+    if len(system.kfs) < 3 or n_marg < 1:
+        raise RuntimeError(f"async drive {mode}: {len(system.kfs)} keyframes, {n_marg} "
+                           f"marginalized")
+    ate = _ate_pct(system, ds)
+    bound = max(1.5 * ate_sync, ATE_MAX_PCT)
+    if not ate <= bound:
+        raise RuntimeError(f"async drive {mode}: ATE {ate:.3f}% of extent > {bound:.3f}%")
+    n_tracked = n_fed - n_init
+    lat = system.frame_latency_ms
+    if len(lat) != n_tracked:
+        raise RuntimeError(f"async drive {mode}: {len(lat)} latencies for {n_tracked} "
+                           f"tracked frames")
+    out = dict(ate=ate, bound=bound, n_fed=n_fed, n_init=n_init, n_tracked=n_tracked,
+               n_kf=len(system.kfs), n_marg=n_marg, fps_all=n_fed / dt,
+               lat_med=statistics.median(lat), lat_p95=_pctl(lat, 0.95),
+               kf_suppressed=system.kf_suppressed, kf_shed_events=system.kf_shed_events,
+               # one pyramid launch per bootstrap frame, then per frame, or
+               # per full batch and per tail frame
+               launches_expected=(n_init + n_tracked // BATCH + n_tracked % BATCH
+                                  if batched else n_fed),
+               n_tail=n_tracked % BATCH if batched else 0)
+    if lc is not None:
+        if lc.retrain_errors:
+            raise RuntimeError(f"vocabulary retrain failed: {lc.retrain_errors}")
+        opti = [k.S_cw_opti for k in system.kfs.values() if k.S_cw_opti is not None]
+        if not all(np.isfinite(S).all() for S in opti):
+            raise RuntimeError("non-finite pose-graph output")
+        if len(lc.loops_closed) < 1 or n_pgo[0] < 1:
+            raise RuntimeError(
+                f"async loop drive: {len(lc.loops_closed)} closures, {n_pgo[0]} pose-graph "
+                f"runs; rejected "
+                f"{dict(collections.Counter(r.get('reason') for r in lc.rejected))}")
+        out.update(n_loops=len(lc.loops_closed), n_pgo=n_pgo[0],
+                   loops=[(a, b) for a, b, _ in lc.loops_closed])
+    return out
+
+
+def _mode_line(name: str, r: dict) -> str:
+    extra = (f", {r['n_loops']} closures {r['loops']}, {r['n_pgo']} pose-graph runs"
+             if "n_loops" in r else "")
+    return (f"  {name}: {r['n_fed']} frames ({r['n_init']} to initialize, {r['n_tracked']} "
+            f"tracked, 0 lost), {r['fps_all']:.3f} frames/s, latency median "
+            f"{r['lat_med']:.1f} ms p95 {r['lat_p95']:.1f} ms, {r['n_kf']} KFs "
+            f"({r['n_marg']} marginalized), kf_suppressed {r['kf_suppressed']}, "
+            f"kf_shed_events {r['kf_shed_events']}, ATE {r['ate']:.4f}% (bound "
+            f"{r['bound']:.3f}%), pyramid launches {r['launches']} (expected "
+            f"{r['launches_expected']}){extra}")
 
 
 def _drive_loop(cfg, ds, frames, dev, sync, loop_on: bool) -> dict:
@@ -180,7 +403,8 @@ def _drive_loop(cfg, ds, frames, dev, sync, loop_on: bool) -> dict:
     sync()
     dt = time.perf_counter() - t0
     out = dict(system=system, lc=lc, n_kf=len(system.kfs), fps=len(frames) / dt,
-               n_tracked=statuses.count("tracked"), ate=_ate_pct(system, ds))
+               n_tracked=statuses.count("tracked"), ate=_ate_pct(system, ds),
+               latency_ms=list(system.frame_latency_ms))
     if lc is not None:
         lc.finish_retrain()
         if lc._retrain_thread is not None and lc._retrain_thread.is_alive():
@@ -273,51 +497,56 @@ def main() -> int:
 
     # ---- 3. kernel vs plain, on the card
     ds, frames = _render_bench(N_FRAMES)
+    lds, lframes = _render_bench(LOOP_FRAMES, LOOP_W, LOOP_H, seed=5,
+                                 traj_kind="out_and_back")
     rng = np.random.default_rng(0)
+
+    def random_f32(b, h, w):
+        return torch.as_tensor(rng.random((b, h, w), np.float32) * 255.0, device=dev)
+
+    bench8 = torch.as_tensor(np.stack([f[0] for f in frames[:8]]), device=dev)
     inputs = {
-        "bench_u8": torch.as_tensor(frames[0][0], device=dev),
-        "random_f32": torch.as_tensor(rng.random((H, W), np.float32) * 255.0, device=dev),
+        "bench_u8 B=1": bench8[0], "bench_u8 B=8": bench8,
+        "random_f32 B=1": random_f32(1, H, W)[0], "random_f32 B=8": random_f32(8, H, W),
+        # the batch of phase 6 (b), and a loop frame of phases 5 and 6 (c)
+        f"bench_u8 B={BATCH}": bench8[:BATCH].contiguous(),
+        f"random_f32 B={BATCH}": random_f32(BATCH, H, W),
+        f"loop_u8 {LOOP_W}x{LOOP_H} B=1": torch.as_tensor(lframes[LOOP_FRAMES // 2][0],
+                                                          device=dev),
+        f"random_f32 {LOOP_W}x{LOOP_H} B=1": random_f32(1, LOOP_H, LOOP_W)[0],
+        f"bench_u8 {PART_W}x{PART_H} B=1": bench8[0, :PART_H, :PART_W].contiguous(),
+        f"bench_u8 {PART_W}x{PART_H} B=8": bench8[:, :PART_H, :PART_W].contiguous(),
+        f"random_f32 {PART_W}x{PART_H} B=1": random_f32(1, PART_H, PART_W)[0],
+        f"random_f32 {PART_W}x{PART_H} B=8": random_f32(8, PART_H, PART_W),
     }
-    max_err = 0.0
-    for name, img in inputs.items():
-        pyr_k, gsq_k = pallas_pyramid.build_pyramid_cuda(img, LEVELS)
-        pyr_p, gsq_p = build_pyramid_torch(img, LEVELS)
-        torch.cuda.synchronize()
-        if any(a.shape != b.shape for a, b in zip(pyr_k + gsq_k, pyr_p + gsq_p)):
-            raise RuntimeError(f"pyramid kernel output shapes differ on {name}")
-        e_pyr = max(float((a - b).abs().max()) for a, b in zip(pyr_k, pyr_p))
-        e_gsq = max(float((a - b).abs().max()) for a, b in zip(gsq_k, gsq_p))
-        ok = all(bool(((a - b).abs() <= atol + RTOL * b.abs()).all())
-                 for outs_k, outs_p, atol in ((pyr_k, pyr_p, PYR_ATOL),
-                                              (gsq_k, gsq_p, GSQ_ATOL))
-                 for a, b in zip(outs_k, outs_p))
-        if not ok:
-            raise RuntimeError(f"pyramid kernel disagrees on {name}: max|err| pyr "
-                               f"{e_pyr} gsq {e_gsq} (atol {PYR_ATOL} / {GSQ_ATOL}, "
-                               f"rtol {RTOL})")
-        max_err = max(max_err, e_pyr, e_gsq)
-        print(f"kernel pyramid_level vs plain [{name}]: max|err| pyr {e_pyr:.3g}, "
-              f"gsq {e_gsq:.3g} (bounds: atol {PYR_ATOL} / {GSQ_ATOL} + rtol {RTOL}"
-              f"·|plain|)", flush=True)
-    img = inputs["bench_u8"]
-    kernel = lambda: pallas_pyramid.build_pyramid_cuda(img, LEVELS)  # noqa: E731
-    plain = lambda: build_pyramid_torch(img, LEVELS)                  # noqa: E731
+    max_err = max(max(check_pyramid(name, img)) for name, img in inputs.items())
+    img1, img8 = inputs["bench_u8 B=1"], inputs["bench_u8 B=8"]
+    kernel1 = lambda: pallas_pyramid.build_pyramid_cuda(img1, LEVELS)  # noqa: E731
+    kernel8 = lambda: pallas_pyramid.build_pyramid_cuda(img8, LEVELS)  # noqa: E731
+    plain = lambda: build_pyramid_torch(img1, LEVELS)                   # noqa: E731
     # in turns (plain, kernel, kernel, plain), so drift hits both alike
-    p1, k1, k2, p2 = (_time_ms(fn) for fn in (plain, kernel, kernel, plain))
-    ms_k, ms_p = 0.5 * (k1 + k2), 0.5 * (p1 + p2)
-    print(f"kernel pyramid_level timing [bench_u8 {W}x{H}, {LEVELS} levels]: "
-          f"kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms | {card}", flush=True)
+    p1, k1, k2, p2 = (_time_ms(fn) for fn in (plain, kernel1, kernel1, plain))
+    ms_call, ms_p = 0.5 * (k1 + k2), 0.5 * (p1 + p2)
+    ms_k1, ms_k8 = _device_ms(kernel1), _device_ms(kernel8)
+    bound1, bound_by = pyramid_bound_ms(1, H, W, LEVELS, 1)
+    bound8, _ = pyramid_bound_ms(8, H, W, LEVELS, 1)
+    print(f"kernel pyramid timing [bench_u8 {W}x{H}, {LEVELS} levels, one launch]: "
+          f"device B=1 {ms_k1:.4f} ms (bound {bound1:.5f} ms by {bound_by}), device B=8 "
+          f"{ms_k8:.4f} ms (bound {bound8:.5f} ms), whole call B=1 {ms_call:.4f} ms, "
+          f"plain B=1 {ms_p:.4f} ms | {card}", flush=True)
 
     # ---- 4. the main path, at the untouched default preset
     from ldso_tpu_torch.config import preset
 
+    sync = torch.cuda.synchronize
     t_phase = time.perf_counter()
     pallas_pyramid.reset_launches()
-    main = drive_bench(preset("default"), ds, frames, dev, sync=torch.cuda.synchronize)
+    main = drive_bench(preset("default"), ds, frames, dev, sync=sync)
     launches_main = pallas_pyramid.LAUNCHES
-    if launches_main < LEVELS * main["n_tracked"] or main["n_tracked"] == 0:
+    # one launch per frame: a bootstrap frame builds one pyramid too
+    if launches_main != len(frames) or main["n_tracked"] == 0:
         raise RuntimeError(f"pyramid kernel launched {launches_main} times for "
-                           f"{main['n_tracked']} tracked frames x {LEVELS} levels")
+                           f"{len(frames)} frames ({main['n_tracked']} tracked)")
     print(f"main path: {len(frames)} frames ({main['n_init']} to initialize, "
           f"{main['n_tracked']} tracked, 0 lost), {main['n_kf']} KFs ({main['n_marg']} "
           f"marginalized), {main['n_corner_act']} corner-seeded activations, ATE "
@@ -329,15 +558,13 @@ def main() -> int:
 
     # ---- 5. loop closure on the loop sequence
     t_phase = time.perf_counter()
-    lds, lframes = _render_bench(LOOP_FRAMES, LOOP_W, LOOP_H, seed=5,
-                                 traj_kind="out_and_back")
     pallas_pyramid.reset_launches()
-    loop = drive_loop_pair(preset("default"), lds, lframes, dev,
-                           sync=torch.cuda.synchronize)
+    loop = drive_loop_pair(preset("default"), lds, lframes, dev, sync=sync)
     launches_loop = pallas_pyramid.LAUNCHES
-    if launches_loop < LEVELS * (loop["off"]["n_tracked"] + loop["on"]["n_tracked"]):
+    # two drives of one launch per frame, and the relocalization's pyramid
+    if launches_loop != 2 * len(lframes) + 1:
         raise RuntimeError(f"pyramid kernel launched {launches_loop} times in the loop "
-                           f"phase")
+                           f"phase, expected {2 * len(lframes) + 1}")
     off, on = loop["off"], loop["on"]
     print(f"loop closure: {LOOP_FRAMES} frames {LOOP_W}x{LOOP_H} out_and_back, 0 lost "
           f"in both drives; ATE loop off {off['ate']:.4f}% -> loop on {on['ate']:.4f}% "
@@ -352,12 +579,52 @@ def main() -> int:
           f"pyramid launches {launches_loop}; phase wall time "
           f"{time.perf_counter() - t_phase:.1f} s | {card}", flush=True)
 
+    # ---- 6. async modes, free-running
+    t_phase = time.perf_counter()
+    drives = {}
+    for name, kw, seq, ate_sync in (
+            (f"(a) async, first {N_ASYNC_A} frames", dict(), (ds, frames[:N_ASYNC_A]),
+             main["ate"]),
+            (f"(b) async + pipeline_depth 8 + batch {BATCH}", dict(batched=True),
+             (ds, frames), main["ate"]),
+            ("(c) async + AsyncLoopClosing, loop sequence", dict(loop=True),
+             (lds, lframes), on["ate"])):
+        pallas_pyramid.reset_launches()
+        r = drive_async(preset("default"), *seq, dev, sync, ate_sync, **kw)
+        r["launches"] = pallas_pyramid.LAUNCHES
+        if r["launches"] != r["launches_expected"]:
+            raise RuntimeError(f"{name}: pyramid kernel launched {r['launches']} times, "
+                               f"expected {r['launches_expected']}")
+        drives[name] = r
+    if drives[f"(b) async + pipeline_depth 8 + batch {BATCH}"]["n_tail"] < 1:
+        raise RuntimeError("the batched drive left no tail of fewer than a batch")
+    launches_async = sum(r["launches"] for r in drives.values())
+    print(f"async modes (free-running, host clock over the whole drive with its drain; "
+          f"latency = add_frame to pose available) | {card}", flush=True)
+    print(f"  sync, bench sequence (phase 4): {len(frames)} frames, "
+          f"{main['fps_all']:.3f} frames/s, latency median "
+          f"{statistics.median(main['latency_ms']):.1f} ms p95 "
+          f"{_pctl(main['latency_ms'], 0.95):.1f} ms, {main['n_kf']} KFs, ATE "
+          f"{main['ate']:.4f}%", flush=True)
+    print(f"  sync + LoopClosing, loop sequence (phase 5): {len(lframes)} frames, "
+          f"{on['fps']:.3f} frames/s, latency median "
+          f"{statistics.median(on['latency_ms']):.1f} ms p95 "
+          f"{_pctl(on['latency_ms'], 0.95):.1f} ms, {on['n_kf']} KFs, ATE {on['ate']:.4f}%",
+          flush=True)
+    for name, r in drives.items():
+        print(_mode_line(name, r), flush=True)
+    print(f"async modes: phase wall time {time.perf_counter() - t_phase:.1f} s | {card}",
+          flush=True)
+
     print(json.dumps({"kernels": [{
-        "name": "pyramid_level", "route": "cuda",
+        "name": "pyramid", "route": "cuda",
         "source": "ldso_tpu_torch/csrc/pyramid.cu",
         "replaces": "ldso_tpu/kernels/pallas_pyramid.py:33",
-        "launches": launches_main + launches_loop, "max_abs_err": max_err,
-        "ms": ms_k, "plain_ms": ms_p}]}), flush=True)
+        "launches": launches_main + launches_loop + launches_async,
+        "max_abs_err": max_err, "ms": ms_k1, "ms_b8": ms_k8, "ms_is": "device",
+        "call_ms": ms_call,
+        "plain_ms": ms_p, "bound_ms": bound1, "bound_ms_b8": bound8,
+        "bound_by": bound_by, "library_ms": None}]}), flush=True)
     print(f"card: {_card_line()}", flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

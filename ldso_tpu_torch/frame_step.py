@@ -1,11 +1,17 @@
-"""Per-frame programs: track step, trace step, fused step.
+"""Per-frame programs: the fused track + trace step, single and batched.
 
-Port of ``ldso_tpu/frame_step.py`` (``fused_batch`` is not ported yet).
-``fused_step`` runs pyramid build → constant-velocity prediction →
-batched motion-hypothesis ladder → winner refinement → flow indicators
-→ KF-decision score → affine transfer → epipolar trace of the immature
-bank. The host reads one small ``diag`` vector per frame, laid out by
-the DIAG_* indices below (the winning refToNew pose rides inside it).
+Port of ``ldso_tpu/frame_step.py``. ``fused_step`` runs pyramid build →
+constant-velocity prediction → batched motion-hypothesis ladder → winner
+refinement → flow indicators → KF-decision score → affine transfer →
+epipolar trace of the immature bank. The host reads one small ``diag``
+vector per frame, laid out by the DIAG_* indices below (the winning
+refToNew pose rides inside it).
+
+``fused_batch`` does the same for B frames: the reference scans over the
+frames inside one XLA program; here all B pyramids are ONE launch of the
+pyramid kernel, and a host loop tracks and traces frame after frame with
+the carry (prediction pair, relative affine, bank) staying on the device
+— nothing is read back inside the loop.
 """
 
 from __future__ import annotations
@@ -48,6 +54,11 @@ def _track_core(img, ref, T_last, T_prelast, ab0, intr, new_exposure, cfg):
     """Shared tracking body. ``img`` [H, W] uint8 or f32 (widened by the
     pyramid build)."""
     pyr, gsq = build_pyramid(img, cfg.shapes.pyr_levels)
+    return _track_pyr(pyr, gsq, ref, T_last, T_prelast, ab0, intr, new_exposure, cfg)
+
+
+def _track_pyr(pyr, gsq, ref, T_last, T_prelast, ab0, intr, new_exposure, cfg):
+    """Tracking body on a built pyramid."""
     # constant-velocity prediction from the previous two refToNew poses
     vel = lie.se3_mul(T_last, lie.se3_inverse(T_prelast))
     T_cv = lie.se3_mul(vel, T_last)
@@ -56,7 +67,7 @@ def _track_core(img, ref, T_last, T_prelast, ab0, intr, new_exposure, cfg):
 
     # keyframe-decision score (weights premultiplied by nominal 640+480)
     tc = cfg.tracker
-    h, w = img.shape
+    h, w = pyr[0].shape[:2]
     norm = 1120.0 / (w + h)
     delta = tc.kf_global_weight * norm * (
         tc.max_shift_weight_t * tr.flow[0]
@@ -139,3 +150,46 @@ def fused_step(img, ref: tracker.TrackerRef, T_last, T_prelast, ab0,
                            torch.stack([a_abs, b_abs]), new_exposure, intr, cfg)
     return FusedStepOut(pyr=tuple(pyr), gsq=tuple(gsq), T=T, bank=new_bank,
                         diag=diag)
+
+
+class FusedBatchOut(NamedTuple):
+    pyr: tuple               # L × [B, H_l, W_l, 3] stacked pyramids
+    diags: torch.Tensor      # [B, DIAG_LEN] f32, one readback per B frames
+    bank: Bank               # bank after tracing all B frames
+    T_last: torch.Tensor     # [4, 4] last refToNew (device carry)
+    T_prelast: torch.Tensor  # [4, 4]
+    ab_rel: torch.Tensor     # [2] last relative affine (device carry)
+
+
+def fused_batch(imgs, exposures, ref: tracker.TrackerRef, T_last, T_prelast,
+                ab0, bank: Bank, T_eval, x, exposure_all, T_ref_cw,
+                intr, cfg) -> FusedBatchOut:
+    """Track + trace B frames. ``imgs`` [B, H, W] uint8 or f32 on the
+    device; ``exposures`` a host sequence of B floats. The B pyramids are
+    one batched build; the prediction pair, the relative-affine chain and
+    the bank ride from frame to frame on the device exactly as they ride
+    host state in the per-frame path. KF decisions read the stacked diags
+    after the batch, so they lag by up to B-1 frames."""
+    stride = max(int(cfg.trace.trace_every), 1)
+    pyrs, gsqs = build_pyramid(imgs, cfg.shapes.pyr_levels)
+    T_l, T_p, ab = T_last, T_prelast, ab0
+    diags = []
+    for it in range(imgs.shape[0]):
+        expo = float(exposures[it])
+        pyr, gsq = slice_pyr(pyrs, it), slice_pyr(gsqs, it)
+        _, _, T, (a_abs, b_abs), diag = _track_pyr(
+            pyr, gsq, ref, T_l, T_p, ab, intr, expo, cfg)
+        # realtime work-shedding: trace only every ``stride``th frame
+        if it % stride == 0:
+            bank = _trace_core(pyr[0], bank, T_eval, x, exposure_all,
+                               lie.se3_mul(T, T_ref_cw), torch.stack([a_abs, b_abs]),
+                               expo, intr, cfg)
+        T_l, T_p, ab = T, T_l, diag[DIAG_A_REL:DIAG_B_REL + 1]
+        diags.append(diag)
+    return FusedBatchOut(pyr=tuple(pyrs), diags=torch.stack(diags), bank=bank,
+                         T_last=T_l, T_prelast=T_p, ab_rel=ab)
+
+
+def slice_pyr(pyr_batch, idx: int) -> tuple:
+    """Frame ``idx``'s levels out of a stacked pyramid (views, no copy)."""
+    return tuple(p[idx] for p in pyr_batch)

@@ -36,22 +36,23 @@ def crop_to_multiple(img, levels: int):
 
 
 def _downsample2(img):
-    """2x2 average pooling, [H, W] -> [H/2, W/2]."""
-    h, w = img.shape
-    return img.reshape(h // 2, 2, w // 2, 2).mean(dim=(1, 3))
+    """2x2 average pooling, [..., H, W] -> [..., H/2, W/2]."""
+    h, w = img.shape[-2:]
+    return img.reshape(*img.shape[:-2], h // 2, 2, w // 2, 2).mean(dim=(-3, -1))
 
 
 def _gradients(img):
-    """Central differences with clamped borders: [H, W] -> dx, dy."""
-    right = torch.cat([img[:, 1:], img[:, -1:]], dim=1)
-    left = torch.cat([img[:, :1], img[:, :-1]], dim=1)
-    down = torch.cat([img[1:], img[-1:]], dim=0)
-    up = torch.cat([img[:1], img[:-1]], dim=0)
+    """Central differences with clamped borders: [..., H, W] -> dx, dy."""
+    right = torch.cat([img[..., 1:], img[..., -1:]], dim=-1)
+    left = torch.cat([img[..., :1], img[..., :-1]], dim=-1)
+    down = torch.cat([img[..., 1:, :], img[..., -1:, :]], dim=-2)
+    up = torch.cat([img[..., :1, :], img[..., :-1, :]], dim=-2)
     return 0.5 * (right - left), 0.5 * (down - up)
 
 
 def build_pyramid_torch(img, levels: int):
-    """Plain torch pyramid (equal to the reference's ``build_pyramid_xla``)."""
+    """Plain torch pyramid of one frame [H, W] or a batch [B, H, W] (per
+    frame equal to the reference's ``build_pyramid_xla``)."""
     pyr, gsq = [], []
     cur = img.to(torch.float32)              # uint8 frames widen here
     for l in range(levels):
@@ -64,9 +65,10 @@ def build_pyramid_torch(img, levels: int):
 
 
 def build_pyramid(img, levels: int):
-    """img [H, W] uint8/f32 -> (pyramid, grad_sq):
-      pyramid: list of [H_l, W_l, 3] (I, dx, dy) stacks, finest first
-      grad_sq: list of [H_l, W_l] squared gradient magnitude
+    """img [H, W] or [B, H, W] uint8/f32 -> (pyramid, grad_sq):
+      pyramid: list of [(B,) H_l, W_l, 3] (I, dx, dy) stacks, finest first
+      grad_sq: list of [(B,) H_l, W_l] squared gradient magnitude
+    A CUDA tensor goes through the kernel, in one launch for the batch.
     """
     if img.device.type == "cpu":
         return build_pyramid_torch(img, levels)

@@ -1,7 +1,9 @@
-"""Loop detection + correction orchestration (synchronous).
+"""Loop detection + correction orchestration, inline or on a worker.
 
-Port of ``LoopClosing`` from ``ldso_tpu/loop/closing.py``: the host
-conductor is called once per keyframe, and every numeric stage runs as
+Port of ``LoopClosing`` and ``AsyncLoopClosing`` from
+``ldso_tpu/loop/closing.py``: the host conductor is called once per
+keyframe (``LoopClosing`` processes it inline, ``AsyncLoopClosing``
+snapshots it and processes it on its own thread), and every numeric stage runs as
 torch on the system's device — feature detection, BoW assignment and
 scoring, Hamming matching, batched Sim3/PnP RANSAC, GN refine and the
 CG pose graph. The vocabulary is trained lazily from the first
@@ -19,6 +21,7 @@ device, seeded from ``cfg.seed`` (the reference splits a
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import threading
 import traceback
@@ -125,7 +128,15 @@ class LoopClosing:
     def on_keyframe(self, system, kf, pyr) -> Optional[dict]:
         """Per-new-KF hook (reference: InsertKeyFrame + Run loop body):
         detect + close inline."""
-        return self._process(system, kf, pyr[0], system.win, kf.slot, system.bank)
+        return self._process(*self._snapshot(system, kf, pyr))
+
+    @staticmethod
+    def _snapshot(system, kf, pyr) -> tuple:
+        """What ``_process`` reads of the engine, taken at keyframe time:
+        the keyframe's finest level, the window, its slot, the bank and
+        the idepth Hessians of the BA that just ran."""
+        return (system, kf, pyr[0], system.win, kf.slot, system.bank,
+                system.last_idepth_hessian)
 
     @staticmethod
     def _immature_depth_sources(win, bank, slot):
@@ -163,7 +174,7 @@ class LoopClosing:
         return orb.detect(img3, max_features=self.cfg.loop.max_features,
                           fast_th=self.cfg.loop.orb_fast_th)
 
-    def _process(self, system, kf, pyr0, win, slot, bank) -> Optional[dict]:
+    def _process(self, system, kf, pyr0, win, slot, bank, hdd) -> Optional[dict]:
         cfg = self.cfg
         self._bind_device(system)
         feats = self._detect(pyr0)
@@ -173,7 +184,6 @@ class LoopClosing:
         # whose idepth Hessian is weak (low-parallax, e.g. a distant
         # backdrop) carry map-inconsistent depths that poison the Sim3
         # scale estimate (reference: idepth_hessian gates throughout)
-        hdd = system.last_idepth_hessian
         if hdd is not None and len(hdd) == len(pt_valid):
             pt_valid = pt_valid & (hdd > 20.0 * cfg.ba.min_idepth_hessian)
         pt_uv, pt_idep = pt_uv[pt_valid], pt_idep[pt_valid]
@@ -507,3 +517,84 @@ class LoopClosing:
                     # its center-preserving SE3 projection for trajectory
                     system.kfs[k].S_cw_opti = S_opt[i].copy()
                     system.kfs[k].T_cw = T_opt[i].astype(np.float64)
+
+
+class AsyncLoopClosing(LoopClosing):
+    """Loop closure on a worker thread: keyframes are snapshotted at the
+    mapping boundary (``on_keyframe``) and processed — ORB, BoW, matching,
+    Sim3 RANSAC and refine, pose graph — off the tracking and mapping
+    path. Write-backs (pose edges, optimized out-of-window KF poses) go
+    through ``system.state_lock`` exactly like the synchronous variant.
+    An exception of the worker is raised by the next ``on_keyframe`` or
+    ``finish``; until then the worker takes no further keyframe, so the
+    first cause is the one reported."""
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        self._queue: collections.deque = collections.deque()
+        self._cv = threading.Condition()
+        self._busy = False
+        self._running = True
+        self._exc: Optional[BaseException] = None
+        self.results: List[dict] = []
+        self._thread: Optional[threading.Thread] = threading.Thread(
+            target=self._worker, name="ldso-loop", daemon=True)
+        self._thread.start()
+
+    def _raise_exc(self):
+        if self._exc is not None:
+            with self._cv:
+                exc, self._exc = self._exc, None
+                self._cv.notify_all()
+            raise exc
+
+    def on_keyframe(self, system, kf, pyr) -> None:
+        """Snapshot the engine state now; process it on the worker."""
+        self._raise_exc()
+        with self._cv:
+            self._queue.append(self._snapshot(system, kf, pyr))
+            self._cv.notify_all()
+
+    def _worker(self):
+        while True:
+            with self._cv:
+                # an exception not yet handed over holds the queue
+                while self._running and (not self._queue or self._exc is not None):
+                    self._cv.wait()
+                if not self._running:
+                    return
+                item = self._queue.popleft()
+                self._busy = True
+            try:
+                r = self._process(*item)
+                if r is not None:
+                    self.results.append(r)
+            except Exception as e:        # raised by the next on_keyframe / finish
+                self._exc = e
+            finally:
+                with self._cv:
+                    self._busy = False
+                    self._cv.notify_all()
+
+    def finish(self):
+        """Block until the queue has drained (sequence end, tests)."""
+        with self._cv:
+            while (self._queue or self._busy) and self._exc is None:
+                self._cv.wait(0.05)
+        self._raise_exc()
+
+    def shutdown(self):
+        """``finish``, then stop the worker."""
+        if self._thread is None:
+            return
+        try:
+            self.finish()
+        finally:
+            with self._cv:
+                self._running = False
+                self._queue.clear()
+                self._cv.notify_all()
+            self._thread.join(timeout=30.0)
+            if self._thread.is_alive():
+                raise RuntimeError("the loop-closure thread did not stop")
+            self._thread = None

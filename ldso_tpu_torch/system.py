@@ -1,35 +1,76 @@
-"""System orchestration: the synchronous odometry conductor.
+"""System orchestration: the odometry conductor, sync and track ∥ map.
 
-Port of the synchronous subset of ``ldso_tpu/system.py``: every numeric
-stage (pyramid, tracking, tracing, activation, BA, marginalization
-assembly) is a torch function over fixed-capacity tensors on one device;
-this module is the host state machine that owns the frame loop, the
-keyframe decision, the point lifecycle (immature → active → marginalized
-/ dropped), window management and trajectory bookkeeping.
+Port of ``ldso_tpu/system.py``: every numeric stage (pyramid, tracking,
+tracing, activation, BA, marginalization assembly) is a torch function
+over fixed-capacity tensors on one device; this module is the host state
+machine that owns the frame loop, the keyframe decision, the point
+lifecycle (immature → active → marginalized / dropped), window management
+and trajectory bookkeeping.
 
 Per frame: pyramid → coarse track vs. reference KF → epipolar trace of
-the immature bank (one ``frame_step.fused_step``) → KF decision. Per
+the immature bank (one ``frame_step.fused_step``, or one
+``frame_step.fused_batch`` per ``batch_size`` frames) → KF decision. Per
 keyframe: insert → activate immature points → windowed photometric BA →
-flag + marginalize points and frames into the dense prior → select new
-candidates → rebuild the tracker reference.
+rebuild the tracker reference → select new candidates → flag + marginalize
+points and frames into the dense prior.
 
-The reference's device futures, deferred finishes and stacked drains
-exist for its remote TPU link and for the async modes; in sync mode its
-finish runs at once, which is what this conductor does, in the same order.
+Modes (as the reference's constructor arguments):
+  * ``async_mapping``: keyframes are built on a mapping thread
+    (``_mapping_loop``) fed through a queue of keyframe tasks, none of
+    which is ever dropped; at most ``tracker.max_kf_inflight`` keyframes
+    are queued or being built, further wanted ones are suppressed
+    (``kf_suppressed``, ``kf_shed_events``) unless the reference is too
+    stale (``tracker.max_stale_delta``), when tracking waits for the
+    build;
+  * ``pipeline_depth`` > 0 (with ``async_mapping``): the per-frame diag is
+    copied to pinned host memory without blocking and read once its CUDA
+    event has fired, at most ``pipeline_depth`` frames late;
+  * ``batch_size`` > 1 (with both): B frames per ``fused_batch``.
+The tracking thread writes back a bank derived from the snapshot it
+dispatched with; patches the mapping thread committed meanwhile are
+replayed from a journal (``_commit_traced_bank``), so none is lost.
+
+Where this departs from the reference, which was shaped by a remote
+accelerator link:
+  * A keyframe's finish (pose records, marginalization, hooks) runs at the
+    end of its build on the thread that built it; there is no queue of
+    deferred finishes. The tracker reference is swapped and the in-flight
+    count released before that bookkeeping, so tracking is not held up.
+    No finish ever sees a window a later BA has touched, so the
+    reference's stale-row race cannot occur and rows need no generation
+    counter.
+  * A stale keyframe vote (tracked against a reference that has since
+    been replaced) is re-evaluated on a motion axis kept per reference
+    version (``_effective_delta``), not against the single last trigger:
+    that stays right when the lag spans two swaps.
+  * No stacked backlog drains, no pulls by age, no probing for async
+    copies: readiness is ``torch.cuda.Event.query()``.
+  * Every frame is traced by the fused step that tracked it, so a frame
+    that is no keyframe leaves no mapping work and is not queued. The
+    reference's split ``track_step`` / ``trace_step`` pair, its untraced
+    tasks and its rule for dropping queued non-keyframe tasks date from
+    before its fused step; nothing produces such tasks and they are not
+    carried over.
+  * After an exception the mapping thread takes no further task until the
+    exception has been raised on the caller's thread (the next
+    ``add_frame`` / ``finish_mapping``), so the first cause is the one
+    reported and no build runs on half-written state unnoticed.
+All threads launch their work on the default stream.
 
 Loop closure attaches as in the reference: assign a
-``loop.closing.LoopClosing``'s ``on_keyframe`` to :attr:`on_keyframe`
-(called for every finished keyframe with its pyramid) and the object to
-:attr:`loop_closing` (relocalization of lost frames).
-Not ported yet (each raises ``NotImplementedError``, ROADMAP P9): async
-mapping, pipelined and batched tracking.
+``loop.closing.LoopClosing``'s (or ``AsyncLoopClosing``'s) ``on_keyframe``
+to :attr:`on_keyframe` (called for every finished keyframe with its
+pyramid) and the object to :attr:`loop_closing` (relocalization of lost
+frames).
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import threading
-from typing import List, Optional
+import time
+from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -144,20 +185,69 @@ class PoseEdge:
     scale: float = 1.0
 
 
+@dataclasses.dataclass
+class _MapTask:
+    """One tracked frame that becomes a keyframe, handed from the
+    tracking front half to the mapping back half."""
+
+    fid: int
+    ts: float
+    exposure: float
+    pyr: tuple                    # device pyramid of the frame (views, in batch mode)
+    T_cw: np.ndarray              # [4,4] tracked worldToCam
+    aff: tuple                    # (a_abs, b_abs)
+    frame_rec: Optional[FrameRecord]
+    status: dict
+
+
+class _RefSnapshot(NamedTuple):
+    """What one tracking dispatch reads, taken under ``state_lock`` so
+    that a concurrent tracker-ref swap cannot tear it."""
+
+    ref: tracker.TrackerRef
+    ref_kf: int
+    T_ref_np: np.ndarray
+    T_ref_dev: torch.Tensor
+    ref_version: int
+    bank: bank_mod.Bank
+    bank_version: int
+    win: Window
+
+
+@dataclasses.dataclass
+class _Pending:
+    """A dispatched tracking result awaiting its readback: one frame
+    (``out`` a FusedStepOut) or one batch (a FusedBatchOut)."""
+
+    meta: list                    # [(fid, ts, exposure)]
+    out: object
+    batched: bool
+    ref_kf: int
+    T_ref_np: np.ndarray
+    ref_version: int
+    diag_host: torch.Tensor       # host copy of the diag(s), valid once ready
+    event: Optional[object]       # torch.cuda.Event of that copy; None on the CPU
+
+    def ready(self) -> bool:
+        return self.event is None or self.event.query()
+
+
 class FullSystem:
-    """Synchronous monocular direct odometry on one torch device."""
+    """Monocular direct odometry on one torch device."""
 
     def __init__(self, cfg: LdsoConfig, intr, w: int, h: int, *, device,
                  async_mapping: bool = False, pipeline_depth: int = 0,
                  batch_size: int = 1):
-        if async_mapping:
-            raise NotImplementedError("async_mapping: ROADMAP P9 (async modes)")
-        if pipeline_depth > 0:
-            raise NotImplementedError("pipeline_depth > 0: ROADMAP P9 (async modes)")
-        if batch_size > 1:
-            raise NotImplementedError("batch_size > 1: ROADMAP P9 (async modes)")
+        """``async_mapping``: build keyframes on a mapping thread.
+        ``pipeline_depth`` > 0 defers each tracking readback until its copy
+        has landed, by at most that many frames (only with
+        ``async_mapping``). ``batch_size`` > 1 tracks and traces B frames
+        per dispatch (only with both)."""
         self.cfg = cfg
         self.device = torch.device(device)
+        self.pipeline_depth = pipeline_depth if async_mapping else 0
+        self.batch_size = batch_size if (async_mapping and pipeline_depth > 0) else 1
+        self._fbuf: List[tuple] = []          # frames awaiting batch dispatch
         L = cfg.shapes.pyr_levels
         m = 1 << (L - 1)
         self.w = (w // m) * m
@@ -175,6 +265,12 @@ class FullSystem:
         # archived (in host-camera coordinates) when they left the window
         self.map_points: dict = {}
         self.bank = bank_mod.empty_bank(cfg.shapes.max_immature, self.device)
+        # bank-patch journal: the mapping thread's _commit_bank_patch bumps
+        # the version and records (fn, args), so that the tracking thread's
+        # write-back of a traced bank can re-apply every patch committed
+        # since the snapshot it traced from
+        self._bank_version = 0
+        self._bank_patches: List[tuple] = []   # (version, fn, args)
 
         self.initializer = CoarseInitializer(cfg, self.intr, self.device)
         self.initialized = False
@@ -186,7 +282,11 @@ class FullSystem:
         self.frame_count = 0
         self.track_ref: Optional[tracker.TrackerRef] = None
         self.ref_kf: Optional[int] = None
+        # relative affine of the last frame read back, and the ref version
+        # it was measured against: it seeds the next track only against
+        # that same ref (see _track_single)
         self.last_rel_ab = np.zeros(2, dtype=np.float32)
+        self._last_rel_ab_version = -1
         self.T_last_cw: Optional[np.ndarray] = None
         self.T_prelast_cw: Optional[np.ndarray] = None
         self.first_coarse_rmse = -1.0
@@ -195,12 +295,26 @@ class FullSystem:
         eye = torch.eye(4, dtype=torch.float32, device=self.device)
         self._T_last_rel = eye
         self._T_prelast_rel = eye
+        self._ab_rel_dev = torch.zeros(2, dtype=torch.float32, device=self.device)
         self._T_ref_cw_dev = eye
         self._T_ref_cw_np = np.eye(4)
         self._ref_version = 0            # bumped at every tracker-ref swap
         self._dispatch_ref_version = 0
         self._dispatch_T_ref_dev = eye
         self._n_active_cache = 0
+        # submit → pose-available latency per tracked frame (deferred and
+        # batched readbacks included)
+        self.frame_latency_ms: List[float] = []
+        self._t_submit: dict = {}
+        # KF wants suppressed because max_kf_inflight keyframes were
+        # already in flight, and the distinct want-windows among them
+        self.kf_suppressed = 0
+        self.kf_shed_events = 0
+        # motion axis for stale votes: ref version -> (frame id of the
+        # keyframe that version tracks against, its position on the axis)
+        self._kf_base: dict = {0: (-1, 0.0)}
+        self._next_kf_version = 1
+        self._pending: collections.deque = collections.deque()
         self._min_act_dist = cfg.selector.min_act_dist
         self.last_idepth_hessian: Optional[np.ndarray] = None
         # hooks the loop-closing subsystem assigns
@@ -209,6 +323,21 @@ class FullSystem:
         # taken by loop closure around its reads and write-backs of the
         # host registries (slot_kf, kfs, pose_edges), as in the reference
         self.state_lock = threading.Lock()
+
+        # track ∥ map pipeline
+        self._async = bool(async_mapping)
+        self._map_queue: collections.deque = collections.deque()
+        self._map_cv = threading.Condition()
+        self._map_busy = False
+        self._map_exc: Optional[BaseException] = None
+        self._kf_inflight = 0         # KFs queued or being built by mapping
+        self._kf_want_streak = 0      # consecutive suppressed KF wants
+        self._map_running = True
+        self._map_thread: Optional[threading.Thread] = None
+        if async_mapping:
+            self._map_thread = threading.Thread(
+                target=self._mapping_loop, name="ldso-mapping", daemon=True)
+            self._map_thread.start()
 
     # ------------------------------------------------------------------
     # Public API
@@ -221,6 +350,7 @@ class FullSystem:
 
     def add_frame(self, img, timestamp: Optional[float] = None,
                   exposure: float = 1.0) -> dict:
+        self._raise_map_exc()
         fid = self.frame_count
         self.frame_count += 1
         ts = float(timestamp) if timestamp is not None else float(fid)
@@ -228,13 +358,14 @@ class FullSystem:
         img = np.ascontiguousarray(np.asarray(img)[: self.h, : self.w])
         if img.dtype != np.uint8:
             img = img.astype(np.float32, copy=False)
-        img_t = torch.from_numpy(img).to(self.device)
 
         if self.initialized and not self.is_lost:
-            return self._track_single(fid, ts, float(exposure), img_t)
+            self._t_submit[fid] = time.perf_counter()
+            return self._track_and_map(fid, ts, float(exposure), img)
         if self.is_lost and self.loop_closing is None:
             return dict(status="lost", frame_id=fid)
-        pyr, _ = build_pyramid(img_t, self.cfg.shapes.pyr_levels)
+        pyr, _ = build_pyramid(torch.from_numpy(img).to(self.device),
+                               self.cfg.shapes.pyr_levels)
         if self.is_lost:
             # relocalization by BoW + PnP re-anchor
             rel = self.loop_closing.relocalize(self, pyr)
@@ -334,6 +465,8 @@ class FullSystem:
         self.T_last_cw = np.asarray(self.kfs[kf1.kf_id].T_cw)
         self.T_prelast_cw = np.eye(4)
         self._resync_prediction(self._T_ref_cw_np)
+        self._kf_base = {self._ref_version: (fid, 0.0)}
+        self._next_kf_version = self._ref_version + 1
         self.initialized = True
         if self.on_keyframe is not None:
             self.on_keyframe(self, kf0, self._first_pyr)
@@ -343,74 +476,363 @@ class FullSystem:
     # Steady-state tracking
     # ------------------------------------------------------------------
 
-    def _reexpress_carries(self):
+    def _track_and_map(self, fid, ts, exposure, img) -> dict:
+        if self.batch_size > 1:
+            self._fbuf.append((fid, ts, exposure, img))
+            if len(self._fbuf) >= self.batch_size:
+                return self._flush_batch()
+            return dict(status="pending", frame_id=fid)
+        return self._track_single(fid, ts, exposure, img)
+
+    def _snapshot(self) -> _RefSnapshot:
+        with self.state_lock:     # async: the mapping thread swaps these
+            return _RefSnapshot(self.track_ref, self.ref_kf, self._T_ref_cw_np,
+                                self._T_ref_cw_dev, self._ref_version, self.bank,
+                                self._bank_version, self.win)
+
+    def _reexpress_carries(self, snap: _RefSnapshot):
         """The ref swapped since the last dispatch: re-express the
         prediction pair relative to the new ref,
-        T_rel_new = T_rel_old · T_oldref_cw · T_newref_cw⁻¹."""
-        if self._dispatch_ref_version == self._ref_version:
+        T_rel_new = T_rel_old · T_oldref_cw · T_newref_cw⁻¹, on the device
+        and without draining the pipeline. The relative-affine carry
+        resets to zero like the per-frame path's ``last_rel_ab``."""
+        if self._dispatch_ref_version == snap.ref_version:
             return
-        D = lie.se3_mul(self._dispatch_T_ref_dev, lie.se3_inverse(self._T_ref_cw_dev))
+        D = lie.se3_mul(self._dispatch_T_ref_dev, lie.se3_inverse(snap.T_ref_dev))
         self._T_last_rel = lie.se3_mul(self._T_last_rel, D)
         self._T_prelast_rel = lie.se3_mul(self._T_prelast_rel, D)
-        self._dispatch_ref_version = self._ref_version
-        self._dispatch_T_ref_dev = self._T_ref_cw_dev
+        self._ab_rel_dev = torch.zeros_like(self._ab_rel_dev)
+        self._dispatch_ref_version = snap.ref_version
+        self._dispatch_T_ref_dev = snap.T_ref_dev
+
+    def _flush_batch(self) -> dict:
+        """Dispatch the buffered frames as one ``frame_step.fused_batch``:
+        one host→device copy of the stacked frames, one pyramid launch,
+        and later one readback of the stacked diags. Fewer than
+        ``batch_size`` frames (the tail of a sequence) take the per-frame
+        path."""
+        meta, self._fbuf = self._fbuf, []
+        if not meta:
+            return dict(status="pending")
+        if len(meta) < self.batch_size:
+            st: dict = dict(status="pending")
+            for fid, ts, expo, img in meta:
+                st = self._track_single(fid, ts, expo, img)
+                if st.get("status") == "lost":
+                    break
+            return st
+        snap = self._snapshot()
+        self._reexpress_carries(snap)
+        imgs = torch.from_numpy(np.stack([m[3] for m in meta])).to(self.device)
+        out = frame_step.fused_batch(
+            imgs, [m[2] for m in meta], snap.ref, self._T_last_rel,
+            self._T_prelast_rel, self._ab_rel_dev, snap.bank, snap.win.T_eval,
+            snap.win.x, snap.win.exposure, snap.T_ref_dev, self.intr_t, self.cfg)
+        self._commit_traced_bank(out.bank, snap.bank_version)
+        self._T_last_rel = out.T_last
+        self._T_prelast_rel = out.T_prelast
+        self._ab_rel_dev = out.ab_rel
+        self._pending.append(self._pending_entry(
+            [m[:3] for m in meta], out, out.diags, True, snap))
+        st = self._process_due(max(1, self.pipeline_depth // self.batch_size))
+        return st or dict(status="pending", frame_id=meta[-1][0])
 
     def _track_single(self, fid, ts, exposure, img) -> dict:
-        ref_kf_id = self.ref_kf
-        T_ref_np = self._T_ref_cw_np
-        self._reexpress_carries()
-        ab0 = torch.as_tensor(self.last_rel_ab, device=self.device)
+        snap = self._snapshot()
+        self._reexpress_carries(snap)
+        # the last relative affine seeds this track only if it was measured
+        # against this dispatch's ref: a frame that was in flight across a
+        # swap reports its affine against the OLD ref, and the tracker,
+        # which holds (a, b) weakly, would stay near that seed (the
+        # reference's per-frame async path does carry it across)
+        ab0 = torch.as_tensor(
+            self.last_rel_ab if self._last_rel_ab_version == snap.ref_version
+            else np.zeros(2, dtype=np.float32), device=self.device)
         out = frame_step.fused_step(
-            img, self.track_ref, self._T_last_rel, self._T_prelast_rel, ab0,
-            self.bank, self.win.T_eval, self.win.x, self.win.exposure,
-            self._T_ref_cw_dev, self.intr_t, exposure, self.cfg)
-        self.bank = out.bank
+            torch.from_numpy(img).to(self.device), snap.ref, self._T_last_rel,
+            self._T_prelast_rel, ab0, snap.bank, snap.win.T_eval, snap.win.x,
+            snap.win.exposure, snap.T_ref_dev, self.intr_t, exposure, self.cfg)
+        self._commit_traced_bank(out.bank, snap.bank_version)
         self._T_prelast_rel = self._T_last_rel
         self._T_last_rel = out.T
-        return self._process_tracked(fid, ts, exposure, out, ref_kf_id, T_ref_np)
+        entry = self._pending_entry([(fid, ts, exposure)], out, out.diag, False, snap)
+        if self.pipeline_depth == 0:
+            return self._process_entry(entry)
+        # deferred decision: the copy was started at dispatch; entries are
+        # read as soon as their copy has landed, pipeline_depth at most late
+        self._pending.append(entry)
+        st = self._process_due(self.pipeline_depth)
+        return st or dict(status="pending", frame_id=fid)
+
+    def _pending_entry(self, meta, out, diag, batched, snap: _RefSnapshot) -> _Pending:
+        """Start the diag's copy to pinned host memory and mark it with an
+        event; on the CPU the diag is already on the host."""
+        event = None
+        if diag.device.type == "cuda":
+            host = torch.empty(diag.shape, dtype=diag.dtype, pin_memory=True)
+            host.copy_(diag, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+        else:
+            host = diag
+        return _Pending(meta, out, batched, snap.ref_kf, snap.T_ref_np,
+                        snap.ref_version, host, event)
+
+    def _process_due(self, cap: int) -> Optional[dict]:
+        """Consume pending entries from the oldest on while it is ready or
+        the queue is longer than ``cap``."""
+        st = None
+        while self._pending and (len(self._pending) > cap or self._pending[0].ready()):
+            st = self._process_entry(self._pending.popleft())
+            if st.get("status") == "lost":
+                break
+        return st
+
+    def _process_entry(self, entry: _Pending) -> dict:
+        if entry.event is not None:
+            entry.event.synchronize()
+        diags = entry.diag_host.numpy().reshape(len(entry.meta), -1)
+        st: dict = dict(status="pending")
+        for i, (fid, ts, expo) in enumerate(entry.meta):
+            st = self._process_tracked(fid, ts, expo, entry.out, entry.ref_kf,
+                                       entry.T_ref_np, diags[i],
+                                       batch_idx=i if entry.batched else None,
+                                       ref_version=entry.ref_version)
+            if st.get("status") == "lost":
+                break
+        return st
+
+    def _commit_traced_bank(self, traced_bank, bank_version: int):
+        """Write a traced bank back to ``self.bank``, re-applying every
+        bank patch the mapping thread committed since ``bank_version`` was
+        read at dispatch: the keyframe's drops and seeds must survive a
+        concurrent tracking write-back. Patches apply after the trace; the
+        patch functions are pure in (bank, args), so the replay equals
+        what the live bank got."""
+        with self.state_lock:
+            if self._bank_version != bank_version:
+                if self._bank_patches and bank_version < self._bank_patches[0][0] - 1:
+                    raise RuntimeError(
+                        f"bank-patch journal underrun: dispatch read v{bank_version}, "
+                        f"oldest retained v{self._bank_patches[0][0]}")
+                for ver, fn, args in self._bank_patches:
+                    if ver > bank_version:
+                        traced_bank = fn(traced_bank, *args)
+            self.bank = traced_bank
+
+    def _commit_bank_patch(self, fn, *args):
+        """Apply a bank-surgery op to the live bank under the lock and
+        journal it for the tracking thread's write-backs."""
+        with self.state_lock:
+            self.bank = fn(self.bank, *args)
+            self._bank_version += 1
+            self._bank_patches.append((self._bank_version, fn, args))
+            # a keyframe commits three patches (activation drop, seeds,
+            # marginalization cull); 24 entries cover every build that can
+            # overlap one dispatch, and the write-back checks that they did
+            del self._bank_patches[:-24]
 
     def _resync_prediction(self, T_ref_cw: np.ndarray):
         """Re-express the prediction pair relative to ``T_ref_cw`` from the
-        host trajectory state (initialization)."""
+        host trajectory state (initialization, relocalization)."""
         inv_ref = np.linalg.inv(T_ref_cw)
         T_l = self.T_last_cw @ inv_ref if self.T_last_cw is not None else np.eye(4)
         T_p = self.T_prelast_cw @ inv_ref if self.T_prelast_cw is not None else T_l
         f32 = dict(dtype=torch.float32, device=self.device)
         self._T_last_rel = torch.as_tensor(T_l, **f32)
         self._T_prelast_rel = torch.as_tensor(T_p, **f32)
+        self._ab_rel_dev = torch.zeros_like(self._ab_rel_dev)
         self._dispatch_T_ref_dev = torch.as_tensor(np.asarray(T_ref_cw, np.float64), **f32)
         self._dispatch_ref_version = self._ref_version
 
-    def _process_tracked(self, fid, ts, exposure, out, ref_kf_id, T_ref_cw) -> dict:
+    def _drain_pending(self):
+        if self.batch_size > 1 and self._fbuf:
+            self._flush_batch()        # tail frames (per-frame path)
+        while self._pending:
+            self._process_entry(self._pending.popleft())
+
+    def _effective_delta(self, fid: int, delta: float, ref_version: int) -> float:
+        """Motion of frame ``fid`` since the NEWEST keyframe, from its KF
+        score ``delta`` measured against the ref of ``ref_version``.
+
+        Every ref version has a position on one motion axis: the
+        position of the version its keyframe's frame was tracked against,
+        plus that frame's delta (recorded when it triggers,
+        ``_record_trigger``). A frame's own position is its ref's
+        position plus its delta, and its distance to the newest ref's
+        position is the vote. For a current frame that is ``delta``
+        itself; across one swap it is delta minus the trigger's delta, as
+        in the reference; across two swaps it still compares like with
+        like, where the reference's single trigger delta mixes two refs."""
+        cur = self._ref_version
+        if ref_version == cur or cur not in self._kf_base \
+                or ref_version not in self._kf_base:
+            return delta
+        kf_fid, base_now = self._kf_base[cur]
+        if fid <= kf_fid:
+            return 0.0
+        return self._kf_base[ref_version][1] + delta - base_now
+
+    def _record_trigger(self, fid: int, delta: float, ref_version: int):
+        """Frame ``fid`` triggers the keyframe whose ref swap will be
+        version ``_next_kf_version``: fix that version's axis position."""
+        base = self._kf_base.get(ref_version, (fid, 0.0))[1]
+        self._kf_base[self._next_kf_version] = (fid, base + delta)
+        self._next_kf_version += 1
+        for v in [v for v in self._kf_base if v < self._next_kf_version - 8]:
+            del self._kf_base[v]
+
+    def _process_tracked(self, fid, ts, exposure, out, ref_kf_id, T_ref_cw, diag,
+                         batch_idx=None, ref_version=None) -> dict:
         """Consume one tracking result: lost check, trajectory record,
-        KF decision, keyframe build."""
-        diag = out.diag.cpu().numpy()           # the per-frame readback
+        KF decision, hand-off to the mapping back half."""
+        cfg = self.cfg
+        t_sub = self._t_submit.pop(fid, None)
+        if t_sub is not None:
+            self.frame_latency_ms.append(1e3 * (time.perf_counter() - t_sub))
         rmse0 = float(diag[frame_step.DIAG_RMSE0])
         if self.first_coarse_rmse < 0:
             self.first_coarse_rmse = rmse0
         if not np.isfinite(rmse0) or rmse0 > 4.0 * max(self.first_coarse_rmse, 1e-3):
             self.is_lost = True
+            self._pending.clear()     # later frames tracked a lost state
+            self._fbuf.clear()
+            self._t_submit.clear()
             return dict(status="lost", frame_id=fid, rmse=rmse0)
 
         T_rel = diag[frame_step.DIAG_T:].reshape(4, 4).astype(np.float64)
         T_cw = T_rel @ T_ref_cw
+        if ref_version is None:
+            ref_version = self._ref_version
         self.last_rel_ab = diag[frame_step.DIAG_A_REL:frame_step.DIAG_B_REL + 1] \
             .astype(np.float32)
+        self._last_rel_ab_version = ref_version
         self.frames.append(FrameRecord(fid, ts, ref_kf_id, T_rel, False))
 
         flow = diag[frame_step.DIAG_FLOW_T:frame_step.DIAG_FLOW_R + 1]
         delta = float(diag[frame_step.DIAG_KF_DELTA])
         need_kf = delta > 1.0 or 2.0 * self.first_coarse_rmse < rmse0
+        # a vote measured against a ref that has since been replaced would,
+        # at face value, re-trigger a keyframe right after every swap:
+        # re-evaluate it as motion since the newest keyframe
+        eff_delta = self._effective_delta(fid, delta, ref_version)
+        if need_kf and ref_version != self._ref_version:
+            need_kf = eff_delta > 1.0
+        # bounded keyframes in flight: shed further wants, unless the ref
+        # is too stale in scene units, when tracking waits for the build
+        max_inflight = max(int(cfg.tracker.max_kf_inflight), 1)
+        if need_kf and self._async and self._kf_inflight >= max_inflight:
+            self._kf_want_streak += 1
+            max_sup = cfg.tracker.max_kf_suppress
+            too_stale = eff_delta > cfg.tracker.max_stale_delta \
+                or (max_sup > 0 and self._kf_want_streak >= max_sup)
+            if too_stale:
+                with self._map_cv:
+                    self._map_cv.wait_for(
+                        lambda: self._kf_inflight < max_inflight
+                        or self._map_exc is not None, timeout=1.2)
+            if self._kf_inflight >= max_inflight:
+                need_kf = False
+                self.kf_suppressed += 1
+                # distinct want-windows, not want-frames: re-evaluated
+                # votes re-fire on every frame of a lag window
+                if self._kf_want_streak == 1:
+                    self.kf_shed_events += 1
+        if need_kf:
+            self._record_trigger(fid, delta, ref_version)
+            self._kf_want_streak = 0
+            if self._async:
+                with self._map_cv:    # the mapping thread decrements under it
+                    self._kf_inflight += 1
+
         status = dict(status="tracked", frame_id=fid, rmse=rmse0,
                       flow=flow.tolist(), need_kf=bool(need_kf),
                       n_active=self._n_active_cache)
         if need_kf:
+            # the fused step traced this frame; frames that are no
+            # keyframes have no mapping work left and are not delivered
             aff = (float(diag[frame_step.DIAG_A_ABS]), float(diag[frame_step.DIAG_B_ABS]))
-            self._make_keyframe(fid, ts, exposure, out.pyr, T_cw, aff, status,
-                                self.frames[-1])
+            pyr = out.pyr if batch_idx is None else frame_step.slice_pyr(out.pyr, batch_idx)
+            task = _MapTask(fid, ts, exposure, pyr, T_cw, aff, self.frames[-1], status)
+            if self._async:
+                self._deliver_tracked_frame(task)
+            else:
+                self._map_frame(task)
         self.T_prelast_cw = self.T_last_cw
         self.T_last_cw = T_cw
         return status
+
+    # ------------------------------------------------------------------
+    # Track ∥ map pipeline
+    # ------------------------------------------------------------------
+
+    def _raise_map_exc(self):
+        """Surface an exception of the mapping thread on the caller's;
+        the thread takes tasks again once it has been handed over."""
+        if self._map_exc is not None:
+            with self._map_cv:
+                exc, self._map_exc = self._map_exc, None
+                self._map_cv.notify_all()
+            raise exc
+
+    def _deliver_tracked_frame(self, task: _MapTask):
+        self._raise_map_exc()
+        with self._map_cv:
+            # keyframes only, never dropped: _process_tracked bounds the
+            # backlog by suppressing wants beyond max_kf_inflight
+            self._map_queue.append(task)
+            self._map_cv.notify_all()
+
+    def _mapping_loop(self):
+        while True:
+            with self._map_cv:
+                # an exception not yet handed over holds the queue
+                while self._map_running and (not self._map_queue
+                                             or self._map_exc is not None):
+                    self._map_cv.wait()
+                if not self._map_running:
+                    return
+                task = self._map_queue.popleft()
+                self._map_busy = True
+            try:
+                self._map_frame(task)
+            except Exception as e:        # surfaced on the next add_frame /
+                self._map_exc = e         # deliver / finish_mapping
+            finally:
+                with self._map_cv:
+                    self._map_busy = False
+                    self._map_cv.notify_all()
+
+    def finish_mapping(self):
+        """Read every tracking result still pending and block until the
+        mapping backlog has drained."""
+        self._raise_map_exc()
+        self._drain_pending()
+        if self._async:
+            with self._map_cv:
+                while (self._map_queue or self._map_busy) and self._map_exc is None:
+                    self._map_cv.wait(0.05)
+        self._raise_map_exc()
+
+    def shutdown(self):
+        """Stop the mapping thread (after ``finish_mapping``)."""
+        if self._map_thread is None:
+            return
+        try:
+            self.finish_mapping()
+        finally:
+            with self._map_cv:
+                self._map_running = False
+                self._map_queue.clear()
+                self._map_cv.notify_all()
+            self._map_thread.join(timeout=30.0)
+            if self._map_thread.is_alive():
+                raise RuntimeError("the mapping thread did not stop")
+            self._map_thread = None
+
+    def _map_frame(self, task: _MapTask):
+        self._make_keyframe(task.fid, task.ts, task.exposure, task.pyr, task.T_cw,
+                            task.aff, task.status, task.frame_rec)
 
     # ------------------------------------------------------------------
     # Keyframe path
@@ -418,8 +840,10 @@ class FullSystem:
 
     def _make_keyframe(self, fid, ts, exposure, pyr, T_cw, aff_ab, status,
                        frame_rec: FrameRecord):
-        """Build a keyframe and finish it at once (the frame was already
-        traced by its fused step)."""
+        """Build a keyframe and finish it. The tracker ref is swapped, the
+        fresh candidates enter the bank and the in-flight count is
+        released BEFORE the marginalization bookkeeping, so that frames
+        dispatched meanwhile already track against the new keyframe."""
         cfg = self.cfg
         kf = self._new_kf(fid, ts, T_cw, pyr[0], exposure, aff_ab)
         frame_rec.ref_kf = kf.kf_id
@@ -428,9 +852,11 @@ class FullSystem:
         self.win = win_mod.connect_new_frame(self.win, kf.slot)
 
         mad_px = self._update_min_act_dist()
+        with self.state_lock:
+            bank = self.bank
         self.win, act_drop, act_stats = lifecycle.kf_activate(
-            self.win, self.bank, self.intr_t, kf.slot, mad_px, cfg)
-        self.bank = bank_mod.drop_rows(self.bank, act_drop)
+            self.win, bank, self.intr_t, kf.slot, mad_px, cfg)
+        self._commit_bank_patch(bank_mod.drop_rows, act_drop)
         seed = self._dispatch_seed(pyr)
 
         active_rec = [(kid, s) for s, kid in enumerate(self.slot_kf) if kid is not None]
@@ -439,6 +865,12 @@ class FullSystem:
         self.last_idepth_hessian = stats.idepth_hessian
         self._update_tracker_ref(kf)
         self._seed_new_kf(kf.slot, pyr, seed=seed)
+        # the keyframe no longer blocks decisions
+        if self._async:
+            with self._map_cv:
+                if self._kf_inflight > 0:
+                    self._kf_inflight -= 1
+                self._map_cv.notify_all()    # wakes a tracking thread that waits
         self._finish_kf(kf, stats, act_stats.cpu().numpy(), active_rec, status, pyr)
 
     def _finish_kf(self, kf, stats: solve.BAStats, act, active_rec, status, pyr):
@@ -450,8 +882,11 @@ class FullSystem:
                       n_imm_good=int(act[lifecycle.ST_N_IMM_GOOD]),
                       n_imm_q=int(act[lifecycle.ST_N_IMM_Q]))
         self._refresh_kf_poses(stats.poses, active_rec)
-        if self.ref_kf == kf.kf_id:
-            self._T_ref_cw_np = stats.poses[kf.slot].copy()
+        # the exact post-BA pose replaces the tracked estimate the swap
+        # installed (same ref version: the device-side pose was exact)
+        with self.state_lock:
+            if self.ref_kf == kf.kf_id:
+                self._T_ref_cw_np = stats.poses[kf.slot].copy()
 
         marg_slots = self._flag_frames_for_marginalization(stats, active_rec, kf.slot)
         n_goners = self._remove_and_marginalize_points(stats, marg_slots)
@@ -465,7 +900,7 @@ class FullSystem:
             dying = torch.zeros(self.cfg.shapes.max_frames, dtype=torch.bool,
                                 device=self.device)
             dying[list(marg_slots)] = True
-            self.bank = bank_mod.drop_hosted(self.bank, dying)
+            self._commit_bank_patch(bank_mod.drop_hosted, dying)
         status.update(ba_energy=stats.energy_final, ba_iters=stats.iterations,
                       n_res=stats.num_residuals, kf_id=kf.kf_id,
                       n_window=sum(k is not None for k in self.slot_kf),
@@ -487,7 +922,8 @@ class FullSystem:
         kf = KeyframeRecord(self.next_kf_id, fid, ts, np.asarray(T_cw, np.float64), slot)
         self.next_kf_id += 1
         self.slot_kf[slot] = kf.kf_id
-        self.kfs[kf.kf_id] = kf
+        with self.state_lock:
+            self.kfs[kf.kf_id] = kf
         self.win = win_mod.insert_frame(
             self.win, slot, torch.as_tensor(np.asarray(T_cw, np.float32)), img3,
             exposure, aff_ab=aff_ab)
@@ -510,9 +946,10 @@ class FullSystem:
              else self.win.current_pose().cpu().numpy().astype(np.float64))
         rec = (active_rec if active_rec is not None
                else [(kid, s) for s, kid in enumerate(self.slot_kf) if kid is not None])
-        for kid, slot in rec:
-            if self.slot_kf[slot] == kid:
-                self.kfs[kid].T_cw = T[slot]
+        with self.state_lock:
+            for kid, slot in rec:
+                if self.slot_kf[slot] == kid:
+                    self.kfs[kid].T_cw = T[slot]
 
     # ------------------------------------------------------------------
     # Window management (reference: flagFramesForMarginalization)
@@ -607,17 +1044,18 @@ class FullSystem:
         fx, fy, cx, cy = (float(v) for v in stats.c)
         z = 1.0 / idep
         xyz = np.stack([(uv[:, 0] - cx) / fx * z, (uv[:, 1] - cy) / fy * z, z], axis=-1)
-        for s in np.unique(hosts):
-            kid = self.slot_kf[s]
-            if kid is None:
-                continue
-            m = hosts == s
-            prev = self.map_points.get(kid)
-            if prev is None:
-                self.map_points[kid] = dict(xyz_cam=xyz[m], color=color[m])
-            else:
-                prev["xyz_cam"] = np.concatenate([prev["xyz_cam"], xyz[m]])
-                prev["color"] = np.concatenate([prev["color"], color[m]])
+        with self.state_lock:
+            for s in np.unique(hosts):
+                kid = self.slot_kf[s]
+                if kid is None:
+                    continue
+                m = hosts == s
+                prev = self.map_points.get(kid)
+                if prev is None:
+                    self.map_points[kid] = dict(xyz_cam=xyz[m], color=color[m])
+                else:
+                    prev["xyz_cam"] = np.concatenate([prev["xyz_cam"], xyz[m]])
+                    prev["color"] = np.concatenate([prev["color"], color[m]])
 
     def _marginalize_frame(self, slot: int, stats: solve.BAStats):
         cfg = self.cfg
@@ -626,11 +1064,13 @@ class FullSystem:
         T = np.asarray(stats.poses, dtype=np.float64)
         others = sorted((self.slot_kf[s], s) for s in range(len(self.slot_kf))
                         if self.slot_kf[s] is not None and s != slot)
-        kf.T_cw = T[slot]
-        kf.in_window = False
-        kf.slot = -1
-        for okid, oslot in others[: cfg.loop.max_edges_per_kf]:
-            self.pose_edges.append(PoseEdge(kid, okid, T[slot] @ np.linalg.inv(T[oslot])))
+        with self.state_lock:
+            kf.T_cw = T[slot]
+            kf.in_window = False
+            kf.slot = -1
+            for okid, oslot in others[: cfg.loop.max_edges_per_kf]:
+                self.pose_edges.append(
+                    PoseEdge(kid, okid, T[slot] @ np.linalg.inv(T[oslot])))
         aff_prior = np.array([0.0] * 6 + [cfg.ba.affine_prior_a, cfg.ba.affine_prior_b])
         # the diagonal prior pins ABSOLUTE a,b to zero: in delta coordinates
         # its gradient at Δ=0 is λ·x_zero
@@ -676,10 +1116,12 @@ class FullSystem:
             seed = self._dispatch_seed(pyr)
         dying = torch.zeros(self.cfg.shapes.max_frames, dtype=torch.bool,
                             device=self.device)
+        with self.state_lock:
+            bank = self.bank
         drop, slots, s_uv, s_col, s_wgt, s_corner = lifecycle.compute_seed_patch(
-            self.bank, seed, slot, dying, self.cfg)
-        self.bank = bank_mod.apply_patch(self.bank, drop, slots, s_uv, s_col, s_wgt,
-                                         slot, s_corner)
+            bank, seed, slot, dying, self.cfg)
+        self._commit_bank_patch(bank_mod.apply_patch, drop, slots, s_uv, s_col, s_wgt,
+                                slot, s_corner)
 
     # ------------------------------------------------------------------
     # Tracker reference
@@ -688,11 +1130,13 @@ class FullSystem:
     def _update_tracker_ref(self, kf: KeyframeRecord):
         """Rebuild the tracking reference from the keyframe's window state."""
         uv, idep, color, valid = _project_points_to_slot(self.win, kf.slot)
-        self.track_ref = tracker.make_tracker_ref(
+        new_ref = tracker.make_tracker_ref(
             uv, idep, color, valid, self.cfg.shapes.pyr_levels,
             exposure=self.win.exposure[kf.slot], aff_ab=self.win.x[kf.slot, 6:8])
-        self.ref_kf = kf.kf_id
-        self._T_ref_cw_np = np.asarray(kf.T_cw, np.float64).copy()
-        self._T_ref_cw_dev = self.win.current_pose(kf.slot)
-        self._ref_version += 1
-        self.last_rel_ab = np.zeros(2, dtype=np.float32)
+        T_ref_dev = self.win.current_pose(kf.slot)
+        with self.state_lock:     # one swap of the whole bundle
+            self.track_ref = new_ref
+            self.ref_kf = kf.kf_id
+            self._T_ref_cw_np = np.asarray(kf.T_cw, np.float64).copy()
+            self._T_ref_cw_dev = T_ref_dev
+            self._ref_version += 1

@@ -147,21 +147,51 @@ def test_default_preset_builds():
     assert system.on_keyframe is None and system.loop_closing is None
 
 
+@pytest.fixture
+def single_torch_thread():
+    # two Python threads that each enter torch's thread pool oversubscribe a
+    # machine that runs one test process per core; one thread is as fast here
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("kw", [dict(async_mapping=True), dict(pipeline_depth=2),
                                 dict(batch_size=4), dict(corner_fraction=0.3)])
-def test_unported_modes_raise(kw):
-    # the async modes (ROADMAP P9) raise, at corner_fraction 0 and at the
-    # default 0.3 (which is ported: its case checks async mode on top of it)
+def test_unported_modes_raise(kw, single_torch_thread):
+    # these modes raised before they were ported; each now constructs,
+    # takes a few frames and shuts down cleanly. pipeline_depth and
+    # batch_size without async_mapping fall back to sync, as in the
+    # reference; the corner_fraction case runs the full async + pipelined
+    # + batched mode on top of the default corner seeding.
     kw = dict(kw)
     cfg = _cfg(preset, kw.pop("corner_fraction", 0.0))
-    kw = kw or dict(async_mapping=True)
-    with pytest.raises(NotImplementedError, match="P9"):
-        FullSystem(cfg, np.asarray([200.0, 200.0, 80.0, 60.0]), 160, 120, device="cpu", **kw)
+    kw = kw or dict(async_mapping=True, pipeline_depth=8, batch_size=4)
+    ds = SyntheticDataset(w=160, h=120, n=10, traj_kind="forward_arc", seed=0, supersample=1)
+    system = FullSystem(cfg, ds.intrinsics(), ds.w, ds.h, device="cpu", **kw)
+    is_async = bool(kw.get("async_mapping"))
+    assert (system._map_thread is not None) == is_async
+    assert system.pipeline_depth == (kw.get("pipeline_depth", 0) if is_async else 0)
+    assert system.batch_size == (kw.get("batch_size", 1) if system.pipeline_depth else 1)
+    thread = system._map_thread
+    try:
+        for i in range(ds.num_frames):
+            st = system.add_frame(*ds.get_image(i))
+            assert st["status"] != "lost", st
+        system.finish_mapping()
+    finally:
+        system.shutdown()
+    assert system.frame_count == ds.num_frames and not system._pending
+    assert thread is None or not thread.is_alive()
+    assert system._map_thread is None
 
 
 def test_attaching_loop_closure_raises():
-    # a synchronous LoopClosing attaches (ROADMAP P10 landed); the async
-    # worker is ROADMAP P9 and is not in the port
+    # raised for the async worker before it was ported: both variants
+    # attach now, and the worker starts, drains and stops
     from ldso_tpu_torch.loop import closing
 
     system = FullSystem(_cfg(preset), np.asarray([200.0, 200.0, 80.0, 60.0]), 160, 120,
@@ -170,5 +200,14 @@ def test_attaching_loop_closure_raises():
     system.on_keyframe = lc.on_keyframe
     system.loop_closing = lc
     assert system.loop_closing is lc and system.on_keyframe == lc.on_keyframe
-    with pytest.raises(AttributeError):
-        closing.AsyncLoopClosing
+    alc = closing.AsyncLoopClosing(system.cfg, system.intr)
+    thread = alc._thread
+    try:
+        system.on_keyframe = alc.on_keyframe
+        system.loop_closing = alc
+        assert thread.is_alive() and alc.results == []
+        alc.finish()
+    finally:
+        alc.shutdown()
+    thread.join(timeout=10.0)
+    assert not thread.is_alive() and alc._thread is None
