@@ -8,11 +8,16 @@ Run from the root of a checkout, on a machine with a CUDA card:
 Phases, one result line each (any failure raises and exits non-zero):
   1. device: the card's name and power limit, torch/CUDA versions and the
      float32 precision flags;
-  2. build: compile every kernel of the main path from ``ldso_tpu_torch/csrc``;
+  2. build: compile every kernel of the main path from ``ldso_tpu_torch/csrc``
+     and, beside it, the native image loader ``ldso_tpu_torch/native/loader.cc``
+     (host C++; if it cannot be built the reason is printed and the Python
+     decoders serve phase 7); then write phase 7's dataset to a temporary
+     directory (``scripts/torch_tum_fixture.py``);
   3. kernel vs plain: the one-launch pyramid kernel against
      ``build_pyramid_torch`` at every shape the drives below give it
      (640x480 at B = 1 and at the batch of phase 6 (b), 320x240 loop
-     frames at B = 1), at B = 8 and at the partial-tile size 208x176, on
+     frames at B = 1, an undistorted float32 640x480 frame of phase 7's
+     reader at B = 1), at B = 8 and at the partial-tile size 208x176, on
      rendered frames (uint8) and random float32 images, at 5 levels; then
      CUDA-event timings at 640x480 uint8: the
      kernel's device time at B = 1 and B = 8 (launches queued behind a
@@ -48,7 +53,26 @@ Phases, one result line each (any failure raises and exits non-zero):
      as expected (once per frame; in (b) once per bootstrap frame, per
      full batch and per tail frame); (c) must close >= 1 loop and run the
      pose graph. Frames/s (host clock, whole drive with its drain) and the
-     submit-to-pose latency are printed beside the sync drive's.
+     submit-to-pose latency are printed beside the sync drive's;
+  7. dataset path: 120 frames of the bench sequence written to disk in the
+     TUM-monoVO layout (640x480 PNGs in a zip, through an FOV lens with
+     omega 0.5, a gamma 2.2 response, a radial vignette and per-frame
+     exposures; ``camera.txt`` in crop mode), then
+     (a) ``ldso_tpu_torch.cli.main(["run", "--dataset", "tum", ...])``
+     in-process at ``--preset default`` with the default flags (sync, loop
+     closing attached), writing a trajectory, a metrics file and the viz
+     dumps: return code 0, no frame lost, >= 110 finite poses read back
+     from the trajectory file, ATE against the renderer's ground truth <=
+     6% of extent, one metrics line per tracked frame (frame ids
+     consecutive from the end of the bootstrap to the last frame), a PLY
+     with > 0 points, one pyramid launch per frame fed;
+     (b) resume through the Python API: run A takes frames 0..119 with
+     ``save_checkpoint`` after frame 59, run B is ``load_checkpoint`` on the
+     card and frames 60..119; the positions of the two trajectories must
+     agree to 1e-3 (the bound of tests/test_system.py::TestCheckpointResume);
+     printed beside them: the decoder that served the frames, decode ms,
+     device ms of response + vignette + remap, whole ``get_image`` ms,
+     checkpoint bytes and save / load seconds.
 Then a JSON line of per-kernel results, the card line again, and as the
 last line ``{"ok": true, "device": {...}}``. There is no CPU path.
 """
@@ -82,6 +106,10 @@ FP32_FLOPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores, data s
 SPIN_CYCLES = 20_000_000     # ~10 ms: holds the stream while the host queues the launches
 BATCH = 4
 N_ASYNC_A = 80               # frames of phase 6 (a)
+TUM_OMEGA = 0.5              # FOV lens of phase 7's dataset
+N_RESUME = 60                # phase 7 (b): the checkpoint is taken after frame 59
+RESUME_ATOL = 1e-3           # tests/test_system.py::TestCheckpointResume's bound
+MIN_POSES = 110              # of 120, in the trajectory file of phase 7 (a)
 
 
 def _card_line() -> str:
@@ -463,6 +491,155 @@ def drive_loop_pair(cfg, ds, frames, dev, sync) -> dict:
     return dict(off=off, on=on, reloc=reloc)
 
 
+def _ate_pct_file(traj_file: str, ds_gt) -> tuple:
+    """(ATE in % of extent, poses) of a TUM trajectory file against the
+    renderer's ground truth (frame i has timestamp i·0.05)."""
+    import numpy as np
+
+    from ldso_tpu_torch.eval.ate import ate_rmse, read_tum_trajectory
+
+    ts, pos, quat = read_tum_trajectory(traj_file)
+    if not (np.isfinite(pos).all() and np.isfinite(quat).all()):
+        raise RuntimeError("non-finite poses in the trajectory file")
+    gt_c = np.stack([ds_gt.poses_w_c[int(round(t / 0.05))][:3, 3] for t in ts])
+    rmse, _ = ate_rmse(pos, gt_c, with_scale=True)
+    return 100.0 * rmse / float(np.linalg.norm(gt_c.max(0) - gt_c.min(0))), len(ts)
+
+
+def drive_cli(root_dir: str, ds_gt, out_dir: str) -> dict:
+    """Phase 7 (a): the command line, in-process, on the card at the default
+    preset, on the dataset in ``root_dir``; checks its files as the module
+    docstring says."""
+    import contextlib
+    import io
+
+    from ldso_tpu_torch import cli
+
+    traj, metrics, viz = (os.path.join(out_dir, n)
+                          for n in ("traj.txt", "metrics.jsonl", "viz"))
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["run", "--dataset", "tum", "--path", root_dir, "--preset",
+                       "default", "--device", "cuda", "--output", traj,
+                       "--metrics", metrics, "--viz", viz])
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise RuntimeError(f"the CLI returned {rc}")
+    summary = json.loads(buf.getvalue().strip().splitlines()[-1])
+    n_fed = summary["frames"]
+    if summary["lost"] or summary["skipped"] or n_fed != ds_gt.num_frames:
+        raise RuntimeError(f"the CLI lost or skipped frames: {summary}")
+    ate, n_poses = _ate_pct_file(traj, ds_gt)
+    if n_poses < MIN_POSES:
+        raise RuntimeError(f"only {n_poses} poses in the trajectory file")
+    if not ate <= ATE_MAX_PCT:
+        raise RuntimeError(f"CLI ATE {ate:.3f}% of extent > {ATE_MAX_PCT}%")
+    with open(metrics) as f:
+        rows = [json.loads(line) for line in f]
+    ids = [r["frame"] for r in rows]
+    # a record per tracked frame, none for a bootstrap frame: the ids run
+    # from the end of the bootstrap to the last frame without a gap, so no
+    # frame after it was lost
+    if not rows or ids != list(range(n_fed - len(rows), n_fed)):
+        raise RuntimeError(f"{len(rows)} metrics lines for {n_fed} frames fed: {ids}")
+    ply = os.path.join(viz, "map.ply")
+    with open(ply) as f:
+        n_pts = int(next(line for line in f if line.startswith("element vertex")).split()[-1])
+    if n_pts <= 0:
+        raise RuntimeError("the PLY holds no point")
+    return dict(summary=summary, wall=wall, ate=ate, n_poses=n_poses, n_fed=n_fed,
+                n_metrics=len(rows), n_bootstrap=n_fed - len(rows), n_pts=n_pts)
+
+
+def drive_resume(cfg, root_dir: str, out_dir: str, dev, sync) -> dict:
+    """Phase 7 (b): read the dataset once, run A over all frames with a
+    checkpoint after frame ``N_RESUME - 1``, run B from that checkpoint;
+    the two trajectories must agree to RESUME_ATOL."""
+    import numpy as np
+
+    from ldso_tpu_torch.io.checkpoint import load_checkpoint, save_checkpoint
+    from ldso_tpu_torch.io.datasets import TumMonoDataset
+    from ldso_tpu_torch.system import FullSystem
+
+    reader = TumMonoDataset(root_dir, device=dev)
+    try:
+        frames, t_get = [], []
+        for i in range(reader.num_frames):
+            t = time.perf_counter()
+            frames.append(reader.get_image(i))
+            sync()
+            t_get.append(time.perf_counter() - t)
+        intr = reader.intrinsics()
+    finally:
+        reader.close()
+    h, w = frames[0][0].shape
+
+    def feed(system, lo, hi):
+        for i in range(lo, hi):
+            st = system.add_frame(*frames[i])
+            if st["status"] == "lost":
+                raise RuntimeError(f"resume drive: lost at frame {i}: {st}")
+
+    path = os.path.join(out_dir, "ckpt")
+    a = FullSystem(cfg, intr, w, h, device=dev)
+    feed(a, 0, N_RESUME)
+    t = time.perf_counter()
+    save_checkpoint(a, path)
+    t_save = time.perf_counter() - t
+    n_bytes = os.path.getsize(path + ".npz") + os.path.getsize(path + ".json")
+    feed(a, N_RESUME, len(frames))
+    t = time.perf_counter()
+    b = load_checkpoint(path, cfg, device=dev)
+    sync()
+    t_load = time.perf_counter() - t
+    if b.device.type != "cuda":
+        raise RuntimeError(f"the checkpoint was loaded onto {b.device}")
+    feed(b, N_RESUME, len(frames))
+    (_, pa), (_, pb) = a.export_trajectory(), b.export_trajectory()
+    if len(pa) != len(frames) or len(pb) != len(frames):
+        raise RuntimeError(f"resume: {len(pa)} and {len(pb)} poses for {len(frames)} frames")
+    if not (np.isfinite(pa).all() and np.isfinite(pb).all()):
+        raise RuntimeError("resume: non-finite poses")
+    gap = float(np.abs(pa[:, :3, 3] - pb[:, :3, 3]).max())
+    if not gap <= RESUME_ATOL:
+        raise RuntimeError(f"the resumed run parts from the uninterrupted one: max "
+                           f"|position gap| {gap:.3g} > {RESUME_ATOL}")
+    return dict(gap=gap, n_frames=len(frames), n_kf=(len(a.kfs), len(b.kfs)),
+                t_save=t_save, t_load=t_load, n_bytes=n_bytes,
+                get_ms=1e3 * statistics.median(t_get),
+                launches_expected=2 * len(frames) - N_RESUME)
+
+
+def reader_times(root_dir: str, dev, n: int = 20) -> dict:
+    """Per-frame host decode time (zip read + PNG decode, on the feed
+    thread, no prefetch), device time of response + vignette + remap (CUDA
+    events) and the two copies' host time, on the dataset's own frames."""
+    import zipfile
+
+    import torch
+
+    from ldso_tpu_torch.io import datasets
+
+    reader = datasets.TumMonoDataset(root_dir, device=dev)
+    try:
+        with zipfile.ZipFile(os.path.join(root_dir, "images.zip")) as zf:
+            blobs = [zf.read(name) for name in reader._names[:n]]
+        t = time.perf_counter()
+        raws = [datasets.decode_image(b) for b in blobs]
+        decode_ms = 1e3 * (time.perf_counter() - t) / len(blobs)
+        raw_dev = torch.from_numpy(raws[0]).to(dev)
+        device_ms = _time_ms(lambda: reader._undistort(raw_dev))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for raw in raws:
+            torch.from_numpy(raw).to(dev).cpu()
+        copy_ms = 1e3 * (time.perf_counter() - t) / len(raws)
+    finally:
+        reader.close()
+    return dict(decode_ms=decode_ms, device_ms=device_ms, copy_ms=copy_ms)
+
+
 def main() -> int:
     root = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(root, "ldso_tpu_torch")):
@@ -490,10 +667,34 @@ def main() -> int:
           flush=True)
 
     # ---- 2. build
+    import concurrent.futures
+    import tempfile
+
+    from ldso_tpu_torch import native
+    from ldso_tpu_torch.io import datasets
+
     t0 = time.perf_counter()
-    lib = pallas_pyramid.build()
-    print(f"build: {os.path.relpath(lib, root)} in "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    with concurrent.futures.ThreadPoolExecutor(max_workers=2) as pool:
+        builds = [pool.submit(pallas_pyramid.build), pool.submit(native.available)]
+        lib, has_native = (b.result() for b in builds)
+    reason = ""
+    if not has_native:
+        lines = (native.unavailable_reason() or "no reason given").strip().splitlines()
+        # the compiler's or linker's own complaint, else the last line
+        reason = f" ({next((ln for ln in lines if 'error' in ln), lines[-1]).strip()})"
+    print(f"build: {os.path.relpath(lib, root)}; native image loader "
+          f"{'built' if has_native else 'NOT built'}{reason}; frames will be decoded by "
+          f"'{datasets.active_decoder()}'; {time.perf_counter() - t0:.2f} s", flush=True)
+
+    sys.path.insert(0, os.path.join(root, "scripts"))
+    import torch_tum_fixture
+
+    tmp = tempfile.TemporaryDirectory(prefix="ldso_smoke_")
+    t0 = time.perf_counter()
+    tum_root, tum_gt = torch_tum_fixture.make_tum_fixture(
+        os.path.join(tmp.name, "tum"), n=N_FRAMES, w=W, h=H, omega=TUM_OMEGA, seed=3)
+    print(f"dataset: {N_FRAMES} frames {W}x{H} in the TUM-monoVO layout (FOV omega "
+          f"{TUM_OMEGA}, crop mode) written in {time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- 3. kernel vs plain, on the card
     ds, frames = _render_bench(N_FRAMES)
@@ -505,6 +706,11 @@ def main() -> int:
         return torch.as_tensor(rng.random((b, h, w), np.float32) * 255.0, device=dev)
 
     bench8 = torch.as_tensor(np.stack([f[0] for f in frames[:8]]), device=dev)
+    tum_reader = datasets.TumMonoDataset(tum_root, device=dev)
+    tum_f32 = torch.as_tensor(tum_reader.get_image(N_FRAMES // 2)[0], device=dev)
+    tum_reader.close()
+    if tum_f32.dtype != torch.float32 or tuple(tum_f32.shape) != (H, W):
+        raise RuntimeError(f"the reader gave {tum_f32.dtype} {tuple(tum_f32.shape)}")
     inputs = {
         "bench_u8 B=1": bench8[0], "bench_u8 B=8": bench8,
         "random_f32 B=1": random_f32(1, H, W)[0], "random_f32 B=8": random_f32(8, H, W),
@@ -514,6 +720,8 @@ def main() -> int:
         f"loop_u8 {LOOP_W}x{LOOP_H} B=1": torch.as_tensor(lframes[LOOP_FRAMES // 2][0],
                                                           device=dev),
         f"random_f32 {LOOP_W}x{LOOP_H} B=1": random_f32(1, LOOP_H, LOOP_W)[0],
+        # an undistorted irradiance frame, as phase 7's reader hands it over
+        f"tum_f32 {W}x{H} B=1": tum_f32,
         f"bench_u8 {PART_W}x{PART_H} B=1": bench8[0, :PART_H, :PART_W].contiguous(),
         f"bench_u8 {PART_W}x{PART_H} B=8": bench8[:, :PART_H, :PART_W].contiguous(),
         f"random_f32 {PART_W}x{PART_H} B=1": random_f32(1, PART_H, PART_W)[0],
@@ -528,11 +736,14 @@ def main() -> int:
     p1, k1, k2, p2 = (_time_ms(fn) for fn in (plain, kernel1, kernel1, plain))
     ms_call, ms_p = 0.5 * (k1 + k2), 0.5 * (p1 + p2)
     ms_k1, ms_k8 = _device_ms(kernel1), _device_ms(kernel8)
+    ms_f32 = _device_ms(lambda: pallas_pyramid.build_pyramid_cuda(tum_f32, LEVELS))
     bound1, bound_by = pyramid_bound_ms(1, H, W, LEVELS, 1)
     bound8, _ = pyramid_bound_ms(8, H, W, LEVELS, 1)
+    bound_f32, _ = pyramid_bound_ms(1, H, W, LEVELS, 4)
     print(f"kernel pyramid timing [bench_u8 {W}x{H}, {LEVELS} levels, one launch]: "
           f"device B=1 {ms_k1:.4f} ms (bound {bound1:.5f} ms by {bound_by}), device B=8 "
-          f"{ms_k8:.4f} ms (bound {bound8:.5f} ms), whole call B=1 {ms_call:.4f} ms, "
+          f"{ms_k8:.4f} ms (bound {bound8:.5f} ms), float32 frame B=1 {ms_f32:.4f} ms "
+          f"(bound {bound_f32:.5f} ms), whole call B=1 {ms_call:.4f} ms, "
           f"plain B=1 {ms_p:.4f} ms | {card}", flush=True)
 
     # ---- 4. the main path, at the untouched default preset
@@ -616,14 +827,56 @@ def main() -> int:
     print(f"async modes: phase wall time {time.perf_counter() - t_phase:.1f} s | {card}",
           flush=True)
 
+    # ---- 7. the dataset path: the command line, then checkpoint and resume
+    t_phase = time.perf_counter()
+    out_dir = os.path.join(tmp.name, "out")
+    os.makedirs(out_dir)
+    pallas_pyramid.reset_launches()
+    cli_run = drive_cli(tum_root, tum_gt, out_dir)
+    launches_cli = pallas_pyramid.LAUNCHES
+    if launches_cli != cli_run["n_fed"]:
+        raise RuntimeError(f"pyramid kernel launched {launches_cli} times for "
+                           f"{cli_run['n_fed']} frames fed by the CLI")
+    pallas_pyramid.reset_launches()
+    resume = drive_resume(preset("default"), tum_root, out_dir, dev, sync)
+    launches_resume = pallas_pyramid.LAUNCHES
+    if launches_resume != resume["launches_expected"]:
+        raise RuntimeError(f"pyramid kernel launched {launches_resume} times in the resume "
+                           f"drives, expected {resume['launches_expected']}")
+    rt = reader_times(tum_root, dev)
+    tmp.cleanup()
+    cs = cli_run["summary"]
+    print(f"dataset path: CLI over {cli_run['n_fed']} frames {W}x{H} from disk, "
+          f"decoder '{datasets.active_decoder()}'{reason}: return 0, 0 lost, "
+          f"{cli_run['n_poses']} poses in the trajectory file, ATE {cli_run['ate']:.4f}% of "
+          f"extent (limit {ATE_MAX_PCT}%; phase 4 on the undistorted uint8 frames "
+          f"{main['ate']:.4f}%), {cs['keyframes']} KFs, {cli_run['n_metrics']} metrics lines "
+          f"({cli_run['n_bootstrap']} bootstrap frames write none), PLY {cli_run['n_pts']} "
+          f"points, {cs['fps']} frames/s (the CLI's own clock, all frames; phase 4 "
+          f"{main['fps_all']:.3f}), whole call {cli_run['wall']:.1f} s, pyramid launches "
+          f"{launches_cli} | {card}", flush=True)
+    print(f"  reader, per frame: decode {rt['decode_ms']:.3f} ms (host, zip read + PNG, no "
+          f"prefetch), response + vignette + remap {rt['device_ms']:.4f} ms (device, CUDA "
+          f"events), the two copies {rt['copy_ms']:.3f} ms (host clock), whole get_image "
+          f"{resume['get_ms']:.3f} ms (host clock, median, zip prefetch on) | {card}",
+          flush=True)
+    print(f"  resume: checkpoint after frame {N_RESUME - 1}: {resume['n_bytes']} bytes, save "
+          f"{resume['t_save']:.3f} s, load onto the card {resume['t_load']:.3f} s; frames "
+          f"{N_RESUME}..{resume['n_frames'] - 1} again from it: max |position gap| to the "
+          f"uninterrupted run {resume['gap']:.3g} (bound {RESUME_ATOL}), KFs "
+          f"{resume['n_kf'][0]} / {resume['n_kf'][1]}, pyramid launches {launches_resume}; "
+          f"phase wall time {time.perf_counter() - t_phase:.1f} s | {card}", flush=True)
+
     print(json.dumps({"kernels": [{
         "name": "pyramid", "route": "cuda",
         "source": "ldso_tpu_torch/csrc/pyramid.cu",
         "replaces": "ldso_tpu/kernels/pallas_pyramid.py:33",
-        "launches": launches_main + launches_loop + launches_async,
-        "max_abs_err": max_err, "ms": ms_k1, "ms_b8": ms_k8, "ms_is": "device",
-        "call_ms": ms_call,
+        "launches": (launches_main + launches_loop + launches_async + launches_cli
+                     + launches_resume),
+        "max_abs_err": max_err, "ms": ms_k1, "ms_b8": ms_k8, "ms_f32": ms_f32,
+        "ms_is": "device", "call_ms": ms_call,
         "plain_ms": ms_p, "bound_ms": bound1, "bound_ms_b8": bound8,
+        "bound_ms_f32": bound_f32,
         "bound_by": bound_by, "library_ms": None}]}), flush=True)
     print(f"card: {_card_line()}", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -59,6 +59,16 @@ def to_host(bank: Bank) -> Bank:
     return Bank(*(a.cpu().numpy() for a in bank))
 
 
+def from_host(hb: Bank, device) -> Bank:
+    """Device bank from a host snapshot (numpy arrays, see :func:`to_host`)."""
+    f32, i32 = torch.float32, torch.int32
+    dtypes = dict(valid=torch.bool, host_slot=i32, uv=f32, color=f32, weight=f32,
+                  idepth_min=f32, idepth_max=f32, quality=f32, last_status=i32,
+                  outlier_count=i32, is_corner=torch.bool)
+    return Bank(**{f: torch.as_tensor(getattr(hb, f), dtype=dtypes[f], device=device)
+                   for f in Bank._fields})
+
+
 def apply_patch(bank: Bank, drop_mask, seed_slots, seed_uv, seed_color,
                 seed_weight, seed_host_slot, seed_is_corner) -> Bank:
     """Drop rows, then scatter fresh seeds into free slots (``seed_slots``

@@ -86,3 +86,15 @@ def bilinear_packed(packed, uv, c: int, frame=None):
     top = corners[..., 0, :] * (1.0 - du) + corners[..., 1, :] * du
     bot = corners[..., 2, :] * (1.0 - du) + corners[..., 3, :] * du
     return top * (1.0 - dv) + bot * dv
+
+
+def remap_image(img, remap):
+    """Apply an undistortion remap grid.
+
+    img: [H_in, W_in] raw image; remap: [H_out, W_out, 2] sample positions
+    (-1 marks invalid). Returns [H_out, W_out] with invalid pixels = 0.
+    An invalid position samples the clamped corner pixel (finite), which
+    the mask then replaces.
+    """
+    out = bilinear(img, remap)
+    return torch.where(remap[..., 0] >= 0, out, torch.zeros_like(out))

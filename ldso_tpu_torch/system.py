@@ -68,6 +68,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import json
 import threading
 import time
 from typing import List, NamedTuple, Optional
@@ -264,6 +265,8 @@ class FullSystem:
         # persistent map: kf_id -> dict(xyz_cam [n,3], color [n]) of points
         # archived (in host-camera coordinates) when they left the window
         self.map_points: dict = {}
+        # one record per tracked frame (its status without the word itself)
+        self.metrics: List[dict] = []
         self.bank = bank_mod.empty_bank(cfg.shapes.max_immature, self.device)
         # bank-patch journal: the mapping thread's _commit_bank_patch bumps
         # the version and records (fn, args), so that the tracking thread's
@@ -391,6 +394,12 @@ class FullSystem:
             ts_out.append(fr.timestamp)
             poses.append(fr.T_from_ref @ kf.T_cw)
         return np.asarray(ts_out), np.asarray(poses)
+
+    def write_metrics(self, path: str):
+        """One JSON line per tracked frame (``self.metrics``)."""
+        with open(path, "w") as f:
+            for m in self.metrics:
+                f.write(json.dumps(m) + "\n")
 
     # ------------------------------------------------------------------
     # Initialization path
@@ -760,6 +769,8 @@ class FullSystem:
                 self._map_frame(task)
         self.T_prelast_cw = self.T_last_cw
         self.T_last_cw = T_cw
+        self.metrics.append(dict(frame=fid, **{k: v for k, v in status.items()
+                                               if k != "status"}))
         return status
 
     # ------------------------------------------------------------------
@@ -1056,6 +1067,49 @@ class FullSystem:
                 else:
                     prev["xyz_cam"] = np.concatenate([prev["xyz_cam"], xyz[m]])
                     prev["color"] = np.concatenate([prev["color"], color[m]])
+
+    def global_map_points(self, include_window: bool = True):
+        """World point cloud of the persistent map (+ optionally the live
+        window), composed through each KF's latest pose-graph-optimized
+        Sim3, so positions are always current. Returns (xyz [N,3],
+        intensity [N]). In async mode the mapping thread owns the window:
+        call this after ``finish_mapping()``."""
+        xyz_out, col_out = [], []
+        with self.state_lock:
+            arch = [(kid, d["xyz_cam"].copy(), d["color"].copy(),
+                     self.kfs[kid].S_cw_opti if self.kfs[kid].S_cw_opti
+                     is not None else self.kfs[kid].T_cw)
+                    for kid, d in self.map_points.items() if kid in self.kfs]
+            win = self.win
+        for _, xc, col, S_cw in arch:
+            S_wc = np.linalg.inv(np.asarray(S_cw, np.float64))
+            xyz_out.append(xc @ S_wc[:3, :3].T + S_wc[:3, 3])
+            col_out.append(col)
+        if include_window:
+            # one stacked copy: per point (valid, host, u, v, idepth, color),
+            # then the 16 entries of every pose and the 4 intrinsics
+            f32 = torch.float32
+            snap = torch.cat([
+                torch.stack([win.p_valid.to(f32), win.p_host.to(f32), win.p_uv[:, 0],
+                             win.p_uv[:, 1], win.p_idepth, win.p_color[:, 4]],
+                            dim=1).reshape(-1),
+                win.current_pose().reshape(-1), win.c]).cpu().numpy()
+            P, F = win.p_valid.shape[0], win.frame_valid.shape[0]
+            pts = snap[: 6 * P].reshape(P, 6)
+            T_all = snap[6 * P: 6 * P + 16 * F].reshape(F, 4, 4).astype(np.float64)
+            fx, fy, cx, cy = (float(v) for v in snap[6 * P + 16 * F:])
+            pts = pts[pts[:, 0] > 0]
+            if len(pts):
+                z = 1.0 / np.maximum(pts[:, 4], 1e-6)
+                Xc = np.stack([(pts[:, 2] - cx) / fx * z,
+                               (pts[:, 3] - cy) / fy * z, z], -1)
+                T = T_all[pts[:, 1].astype(np.int64)]
+                xyz_out.append(np.einsum("pji,pj->pi", T[:, :3, :3],
+                                         Xc - T[:, :3, 3]))
+                col_out.append(pts[:, 5])
+        if not xyz_out:
+            return np.zeros((0, 3)), np.zeros(0)
+        return np.concatenate(xyz_out), np.concatenate(col_out)
 
     def _marginalize_frame(self, slot: int, stats: solve.BAStats):
         cfg = self.cfg

@@ -1,7 +1,11 @@
 """The port as a package: no JAX at import, the copied framework-neutral
 modules equal their originals, and the state converter round-trips."""
 
+import ast
 import dataclasses
+import glob
+import inspect
+import os
 import subprocess
 import sys
 
@@ -22,13 +26,46 @@ def test_import_pulls_in_no_jax():
             "ldso_tpu_torch.convert, ldso_tpu_torch.kernels.pallas_pyramid, "
             "ldso_tpu_torch.loop.orb, ldso_tpu_torch.loop.match, "
             "ldso_tpu_torch.loop.bow, ldso_tpu_torch.loop.sim3, "
-            "ldso_tpu_torch.loop.posegraph, ldso_tpu_torch.loop.closing; "
+            "ldso_tpu_torch.loop.posegraph, ldso_tpu_torch.loop.closing, "
+            "ldso_tpu_torch.cameras, ldso_tpu_torch.io.photometric, "
+            "ldso_tpu_torch.io.datasets, ldso_tpu_torch.io.checkpoint, "
+            "ldso_tpu_torch.native, ldso_tpu_torch.viz, ldso_tpu_torch.cli, "
+            "ldso_tpu_torch.eval.ate; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'ldso_tpu')); "
             "print(bad); sys.exit(1 if bad else 0)")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _port_sources():
+    files = glob.glob(os.path.join(ROOT, "ldso_tpu_torch", "**", "*.py"), recursive=True)
+    files += glob.glob(os.path.join(ROOT, "scripts", "torch_*.py"))
+    return sorted(files + [os.path.join(ROOT, "chip_smoke.py")])
+
+
+def test_no_source_of_the_port_names_jax_in_an_import():
+    # every import statement of the port, chip_smoke.py and scripts/torch_*.py,
+    # also those inside functions, which the subprocess above does not reach
+    files = _port_sources()
+    assert len(files) > 40
+    bad = []
+    for path in files:
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            bad += [(os.path.relpath(path, ROOT), n) for n in names
+                    if n.split(".")[0] in ("jax", "jaxlib", "ldso_tpu")]
+    assert not bad, bad
 
 
 def _dc_tree(obj):
@@ -72,6 +109,42 @@ def test_ate_copy_equals_original():
     np.testing.assert_array_equal(ea, eb)
     for x, y in zip(jate.umeyama(est, gt), tate.umeyama(est, gt)):
         np.testing.assert_array_equal(x, y)
+
+
+def _same_source(a, b, names):
+    for name in names:
+        fa, fb = a, b
+        for part in name.split("."):
+            fa, fb = getattr(fa, part), getattr(fb, part)
+        assert inspect.getsource(fa) == inspect.getsource(fb), name
+
+
+def test_native_loader_copy_is_byte_identical():
+    with open(os.path.join(ROOT, "ldso_tpu", "native", "loader.cc"), "rb") as f:
+        original = f.read()
+    with open(os.path.join(ROOT, "ldso_tpu_torch", "native", "loader.cc"), "rb") as f:
+        assert f.read() == original
+
+
+@pytest.mark.parametrize("module,names", [
+    ("cameras", ["_distort_fov", "_distort_radtan", "_distort_equidistant",
+                 "_relative_to_absolute", "make_remap", "find_crop_intrinsics",
+                 "parse_calib_text", "pinhole_calib"]),
+    ("eval.ate", ["umeyama", "ate_rmse", "drift_per_distance", "read_tum_trajectory"]),
+    ("io.datasets", ["_decode_png_gray", "_decode_pgm", "EurocDataset._parse_sensor_yaml"]),
+    ("io.photometric", ["PhotometricCalib", "parse_pcalib_text"]),
+    ("viz", ["_centers", "write_ply", "_save_gray_image", "dump_trajectory"]),
+])
+def test_numpy_halves_are_copies_of_the_originals(module, names):
+    import importlib
+
+    j = importlib.import_module(f"ldso_tpu.{module}")
+    t = importlib.import_module(f"ldso_tpu_torch.{module}")
+    _same_source(j, t, names)
+    if module == "cameras":
+        assert sorted(t._DISTORT) == sorted(j._DISTORT)
+        assert [f.name for f in dataclasses.fields(t.CameraCalib)] == \
+            [f.name for f in dataclasses.fields(j.CameraCalib)]
 
 
 def test_brief_pairs_copy_equals_original():
