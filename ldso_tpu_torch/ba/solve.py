@@ -84,6 +84,22 @@ def scale_nullspace(win: Window, anchor_slot: int) -> torch.Tensor:
     return torch.cat([N.reshape(-1), torch.zeros(4, dtype=N.dtype, device=N.device)])
 
 
+def _fixed_scaled_solve(H_f, b_f, scale_vec, fixed):
+    """dx of the damped reduced system H_f dx = -b_f: the gauge-anchor
+    dims hard-fixed (identity rows/cols, zero gradient), then a dense solve
+    scaled by ``scale_vec`` and Jacobi-preconditioned."""
+    H_f = torch.where(fixed[:, None] | fixed[None, :], 0.0, H_f)
+    H_f = H_f + torch.diag(fixed.to(H_f.dtype))
+    b_f = torch.where(fixed, 0.0, b_f)
+    S = scale_vec
+    Hs = H_f * S[:, None] * S[None, :]
+    bs = b_f * S
+    pc = 1.0 / torch.sqrt(torch.diagonal(Hs) + 10.0)
+    Hp = Hs * pc[:, None] * pc[None, :]
+    y = torch.linalg.solve_ex(Hp, (bs * pc)[:, None])[0][:, 0]
+    return -(S * pc * y)
+
+
 def _solve_core(sys_H, sys_b, sys_Hxd, sys_Hdd, sys_bd, HM, bM, delta, prior_d,
                 scale_vec, fixed, N_scale, lam, p_valid, prior_off=None):
     """One damped GN solve: returns (dx [D], dd [P])."""
@@ -103,22 +119,7 @@ def _solve_core(sys_H, sys_b, sys_Hxd, sys_Hdd, sys_bd, HM, bM, delta, prior_d,
 
     H_f = H.clone()
     torch.diagonal(H_f).mul_(1.0 + lam)
-    H_f = H_f - H_sc
-    b_f = b - b_sc
-
-    # hard-fix gauge anchor dims: identity rows/cols, zero gradient
-    H_f = torch.where(fixed[:, None] | fixed[None, :], 0.0, H_f)
-    H_f = H_f + torch.diag(fixed.to(H_f.dtype))
-    b_f = torch.where(fixed, 0.0, b_f)
-
-    # scaled + Jacobi-preconditioned dense solve
-    S = scale_vec
-    Hs = H_f * S[:, None] * S[None, :]
-    bs = b_f * S
-    pc = 1.0 / torch.sqrt(torch.diagonal(Hs) + 10.0)
-    Hp = Hs * pc[:, None] * pc[None, :]
-    y = torch.linalg.solve_ex(Hp, (bs * pc)[:, None])[0][:, 0]
-    dx = -(S * pc * y)
+    dx = _fixed_scaled_solve(H_f - H_sc, b - b_sc, scale_vec, fixed)
 
     # project the scale-gauge direction out of the step
     n2 = torch.dot(N_scale, N_scale)

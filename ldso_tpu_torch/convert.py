@@ -36,7 +36,7 @@ def _fields(arrays) -> Mapping:
     return {f: getattr(arrays, f) for f in arrays._fields}
 
 
-def from_numpy(kind: str, arrays, device="cpu") -> Union[Window, Bank, TrackerRef]:
+def from_numpy(kind: str, arrays, *, device) -> Union[Window, Bank, TrackerRef]:
     """Build the port's ``kind`` ("window", "bank" or "tracker_ref") from a
     mapping or NamedTuple of numpy arrays with the reference's field names."""
     cls = KINDS[kind]

@@ -145,7 +145,7 @@ def _restore_port_state(system, data, port: dict) -> None:
             ref[name] = data[f"port_ref_{name}"]
         else:
             ref[name] = tuple(data[f"port_ref_{name}_{lvl}"] for lvl in range(levels))
-    system.track_ref = convert.from_numpy("tracker_ref", ref, dev)
+    system.track_ref = convert.from_numpy("tracker_ref", ref, device=dev)
     system._T_ref_cw_np = data["port_T_ref_cw"]
     for name in _DEVICE_CARRIES:
         setattr(system, name, torch.as_tensor(data[f"port{name}"], device=dev))

@@ -80,7 +80,7 @@ def _to_vocab(tables, valids, k: int, levels: int, idf: np.ndarray,
 
 def train_vocabulary(descriptors: np.ndarray, k: int = 10, levels: int = 3,
                      iters: int = 8, seed: int = 0,
-                     max_train: int = 60000, device="cpu") -> Vocabulary:
+                     max_train: int = 60000, *, device) -> Vocabulary:
     """Hierarchical k-majority tree (reference: DBoW3 Vocabulary::create
     with k=10, L=5; defaults here are smaller because the vocabulary is
     trained per-corpus rather than on millions of externals)."""
@@ -232,8 +232,8 @@ class KeyframeDatabase:
 # level so every descriptor resolves to one final-level leaf.
 
 
-def load_vocabulary_text(text: str, truncate_levels: Optional[int] = None,
-                         device="cpu") -> Vocabulary:
+def load_vocabulary_text(text: str, truncate_levels: Optional[int] = None, *,
+                         device) -> Vocabulary:
     """Parse a DBoW2/DBoW3 text vocabulary into a :class:`Vocabulary`.
 
     ``truncate_levels``: cap the tree depth (public ORB vocabs are

@@ -70,6 +70,40 @@ def _damping(diag, lam):
     return lam * torch.clamp(tr / 7.0, min=1e-6) + 1e-8
 
 
+def _huber_energy(r, w_edge, huber: float):
+    """Σ w·ρ(|r|) over the edges' [E, 7] residuals (the reference's Huber form)."""
+    rn = torch.linalg.norm(r, dim=-1)
+    hw = torch.where(rn < huber, 1.0, huber / torch.clamp(rn, min=1e-12))
+    return torch.sum(w_edge * hw * rn * rn * (2.0 - hw))
+
+
+def _cg(matvec, precond, b, x0, cg_iters: int, dot=lambda a, c: torch.sum(a * c)):
+    """Preconditioned CG on (JᵀΩJ + λD)x = −b from x0, a fixed number of
+    steps (``dot``: the inner product, a sum over ranks when sharded)."""
+    x = x0
+    rr = -b - matvec(x0)
+    zz = precond(rr)
+    p = zz
+    for _ in range(cg_iters):
+        Ap = matvec(p)
+        rz = dot(rr, zz)
+        alpha = rz / torch.clamp(dot(p, Ap), min=1e-20)
+        x = x + alpha * p
+        rr = rr - alpha * Ap
+        zz = precond(rr)
+        beta = dot(rr, zz) / torch.clamp(rz, min=1e-20)
+        p = zz + beta * p
+    return x
+
+
+def _lm_update(S, S_new, lam, E_prev, E_new):
+    """Accept the step iff the energy dropped: (S, λ, E) after the step."""
+    accept = E_new < E_prev
+    return (torch.where(accept, S_new, S),
+            torch.where(accept, torch.clamp(lam * 0.5, min=1e-7), lam * 4.0),
+            torch.where(accept, E_new, E_prev))
+
+
 def optimize_pose_graph(
     S_init,                  # [K, 4, 4] Sim3 worldToCam
     ei, ej,                  # int [E] edge endpoints (into K)
@@ -90,10 +124,7 @@ def optimize_pose_graph(
     zero = torch.zeros((), dtype=dt, device=dev)
 
     def energy(S):
-        r = edge_residual(S[ei], S[ej], S_meas_inv)
-        rn = torch.linalg.norm(r, dim=-1)
-        hw = torch.where(rn < huber, 1.0, huber / torch.clamp(rn, min=1e-12))
-        return torch.sum(w_edge * hw * rn * rn * (2.0 - hw))
+        return _huber_energy(edge_residual(S[ei], S[ej], S_meas_inv), w_edge, huber)
 
     def scatter(a_i, a_j):
         out = torch.zeros((K,) + a_i.shape[1:], dtype=dt, device=dev)
@@ -130,27 +161,11 @@ def optimize_pose_graph(
             return torch.where(free, torch.einsum("kab,kb->ka", diag_inv, x), zero)
 
         # preconditioned CG on the normal equations
-        x = torch.zeros((K, 7), dtype=dt, device=dev)
-        rr = -b - matvec(x)
-        zz = precond(rr)
-        p = zz
-        for _ in range(cg_iters):
-            Ap = matvec(p)
-            rz = torch.sum(rr * zz)
-            alpha = rz / torch.clamp(torch.sum(p * Ap), min=1e-20)
-            x = x + alpha * p
-            rr = rr - alpha * Ap
-            zz = precond(rr)
-            beta = torch.sum(rr * zz) / torch.clamp(rz, min=1e-20)
-            p = zz + beta * p
+        x = _cg(matvec, precond, b, torch.zeros((K, 7), dtype=dt, device=dev), cg_iters)
         dx = torch.where(free, x, zero)
 
         S_new = lie.sim3_mul(lie.sim3_exp(dx), S)
-        E_new = energy(S_new)
-        accept = E_new < E_prev
-        S = torch.where(accept, S_new, S)
-        lam = torch.where(accept, torch.clamp(lam * 0.5, min=1e-7), lam * 4.0)
-        E_prev = torch.where(accept, E_new, E_prev)
+        S, lam, E_prev = _lm_update(S, S_new, lam, E_prev, energy(S_new))
     return PGOResult(S=S, energy=E_prev, iterations=lm_iters)
 
 

@@ -82,39 +82,62 @@ def fov_distorted_view(render, f, cx_r, cy_r, w, h, omega):
     return map_coordinates(render, [sv, su], order=1, mode="nearest")
 
 
-def make_tum_fixture(root, n=45, w=320, h=240, omega=0.5,
-                     with_distortion=True, seed=3):
-    """Synthetic TUM-monoVO dataset on disk; returns (dir, ds_gt), where
-    ``ds_gt`` is the renderer with the ground-truth poses
-    (``poses_w_c``, ``gt_pose_c_w(i)``; frame i has timestamp i·0.05)."""
+def _renderer(n, w, h, seed):
+    """The clean pinhole renderer, LARGER than the output so that the
+    undistortion's wider field stays inside valid pixels (no border clamp
+    junk in the raw images); returns (renderer, focal length)."""
     from ldso_tpu_torch.io.synthetic import SyntheticDataset
 
-    os.makedirs(root, exist_ok=True)
     f = 0.88 * w
-    # render a LARGER clean view so the undistortion's wider field stays
-    # inside valid pixels (no border clamp junk in the raw images)
-    wr, hr = w + w // 4, h + h // 4
-    ds = SyntheticDataset(w=wr, h=hr, n=n, fov_focal=f, seed=seed,
-                          scene_kind="corridor", traj_kind="forward_arc",
-                          supersample=1)
+    return SyntheticDataset(w=w + w // 4, h=h + h // 4, n=n, fov_focal=f, seed=seed,
+                            scene_kind="corridor", traj_kind="forward_arc",
+                            supersample=1, cache=False), f
+
+
+def render_pngs(n, w, h, omega, with_distortion, seed, lo, hi) -> list:
+    """The PNG bytes of frames lo..hi-1 of the n-frame fixture."""
+    ds, f = _renderer(n, w, h, seed)
+    wr, hr = ds.w, ds.h
     vig = radial_vignette(w, h)
     expo = 1.0 + 0.1 * np.sin(0.4 * np.arange(n))
+    pngs = []
+    for i in range(lo, hi):
+        render = np.asarray(ds.get_image(i)[0], np.float64)
+        if with_distortion:
+            raw_irr = fov_distorted_view(render, f, wr / 2 - 0.5, hr / 2 - 0.5, w, h, omega)
+        else:
+            y0, x0 = (hr - h) // 2, (wr - w) // 2
+            raw_irr = render[y0:y0 + h, x0:x0 + w]
+        px = np.clip(np.round(g(raw_irr * expo[i] * vig)), 0, 255)
+        pngs.append(encode_png_gray(px.astype(np.uint8)))
+    return pngs
+
+
+def make_tum_fixture(root, n=45, w=320, h=240, omega=0.5,
+                     with_distortion=True, seed=3, pool=None):
+    """Synthetic TUM-monoVO dataset on disk; returns (dir, ds_gt), where
+    ``ds_gt`` is the renderer with the ground-truth poses
+    (``poses_w_c``, ``gt_pose_c_w(i)``; frame i has timestamp i·0.05).
+    With an executor ``pool``, chunks of 15 frames are rendered on its
+    workers."""
+    os.makedirs(root, exist_ok=True)
+    ds, f = _renderer(n, w, h, seed)
+    vig = radial_vignette(w, h)
+    expo = 1.0 + 0.1 * np.sin(0.4 * np.arange(n))
+    args = (n, w, h, omega, with_distortion, seed)
+    if pool is None:
+        pngs = render_pngs(*args, 0, n)
+    else:
+        parts = [pool.submit(render_pngs, *args, lo, min(lo + 15, n))
+                 for lo in range(0, n, 15)]
+        pngs = [png for p in parts for png in p.result()]
 
     rows = []
     with zipfile.ZipFile(os.path.join(root, "images.zip"), "w",
                          zipfile.ZIP_STORED) as zf:
-        for i in range(n):
-            render, ts, _ = ds.get_image(i)
-            if with_distortion:
-                raw_irr = fov_distorted_view(
-                    np.asarray(render, np.float64), f,
-                    wr / 2 - 0.5, hr / 2 - 0.5, w, h, omega)
-            else:
-                y0, x0 = (hr - h) // 2, (wr - w) // 2
-                raw_irr = np.asarray(render, np.float64)[y0:y0 + h, x0:x0 + w]
-            px = np.clip(np.round(g(raw_irr * expo[i] * vig)), 0, 255)
-            zf.writestr(f"{i:05d}.png", encode_png_gray(px.astype(np.uint8)))
-            rows.append(f"{i:05d} {ts:.6f} {expo[i]:.6f}")
+        for i, png in enumerate(pngs):
+            zf.writestr(f"{i:05d}.png", png)
+            rows.append(f"{i:05d} {i * 0.05:.6f} {expo[i]:.6f}")
 
     with open(os.path.join(root, "times.txt"), "w") as fh:
         fh.write("\n".join(rows) + "\n")

@@ -143,7 +143,7 @@ def test_fused_batch_matches_jax(batch_inputs):
     t_ref = ttr.make_tracker_ref(*map(torch.tensor, s["ref"]), CFG.shapes.pyr_levels)
     b = tfs.fused_batch(
         torch.tensor(s["imgs"]), list(expos), t_ref, torch.tensor(eye), torch.tensor(eye),
-        torch.zeros(2), convert.from_numpy("bank", s["bank"]),
+        torch.zeros(2), convert.from_numpy("bank", s["bank"], device="cpu"),
         *(torch.tensor(s["win"][k]) for k in ("T_eval", "x", "exposure")),
         torch.tensor(eye), torch.tensor(s["intr"]), CFG)
 
@@ -198,7 +198,7 @@ def test_fused_batch_trace_every_skips_frames(batch_inputs):
     cfg2 = CFG.replace(trace=dataclasses.replace(CFG.trace, trace_every=2))
     t_ref = ttr.make_tracker_ref(*map(torch.tensor, s["ref"]), CFG.shapes.pyr_levels)
     args = lambda: (torch.tensor(s["imgs"][:2]), [1.0, 1.0], t_ref, eye, eye, torch.zeros(2),  # noqa: E731
-                    convert.from_numpy("bank", s["bank"]),
+                    convert.from_numpy("bank", s["bank"], device="cpu"),
                     *(torch.tensor(s["win"][k]) for k in ("T_eval", "x", "exposure")),
                     eye, torch.tensor(s["intr"]))
     every = tfs.fused_batch(*args(), CFG)
@@ -222,7 +222,7 @@ def test_fused_batch_of_one_equals_fused_step(batch_inputs):
     t_ref = ttr.make_tracker_ref(*map(torch.tensor, s["ref"]), CFG.shapes.pyr_levels)
     win = [torch.tensor(s["win"][k]) for k in ("T_eval", "x", "exposure")]
     intr, img = torch.tensor(s["intr"]), torch.tensor(s["imgs"][0])
-    bank = convert.from_numpy("bank", s["bank"])
+    bank = convert.from_numpy("bank", s["bank"], device="cpu")
     fused = tfs.fused_step(img, t_ref, eye, eye, torch.zeros(2), bank, *win, eye, intr, 1.0, CFG)
     one = tfs.fused_batch(img[None], [1.0], t_ref, eye, eye, torch.zeros(2), bank, *win, eye,
                           intr, CFG)

@@ -56,7 +56,7 @@ def _close(t, j, rtol=1e-3, rel_atol=1e-5):
 def test_precompute_pairs(wins):
     jw, a = wins
     pj = jres.precompute_pairs(jw)
-    pt = tres.precompute_pairs(convert.from_numpy("window", a))
+    pt = tres.precompute_pairs(convert.from_numpy("window", a, device="cpu"))
     for f in pj._fields:
         np.testing.assert_allclose(getattr(pt, f).numpy(), np.asarray(getattr(pj, f)),
                                    rtol=1e-5, atol=1e-5)
@@ -66,8 +66,8 @@ def test_precompute_pairs(wins):
 def test_assemble_blocks(wins, mode):
     jw, a = wins
     sj = jres.assemble(jw, huber_th=HUB, outlier_sum=OSUM, mode=mode)
-    st = tres.assemble(convert.from_numpy("window", a), huber_th=HUB, outlier_sum=OSUM,
-                       mode=mode)
+    st = tres.assemble(convert.from_numpy("window", a, device="cpu"), huber_th=HUB,
+                       outlier_sum=OSUM, mode=mode)
     # masks and counts are decisions on identical projections: exact
     for f in ("valid_pair", "oob_pair", "num_res"):
         np.testing.assert_array_equal(getattr(st, f).numpy(), np.asarray(getattr(sj, f)))
@@ -80,7 +80,7 @@ def test_assemble_blocks(wins, mode):
 def test_energy_only(wins):
     jw, a = wins
     ej, nj = jres.energy_only(jw, huber_th=HUB, outlier_sum=OSUM)
-    et, nt = tres.energy_only(convert.from_numpy("window", a), huber_th=HUB,
+    et, nt = tres.energy_only(convert.from_numpy("window", a, device="cpu"), huber_th=HUB,
                               outlier_sum=OSUM)
     assert int(nt) == int(nj)
     np.testing.assert_allclose(float(et), float(ej), rtol=1e-4)
@@ -88,7 +88,7 @@ def test_energy_only(wins):
 
 def test_solver_inputs(wins):
     jw, a = wins
-    tw = convert.from_numpy("window", a)
+    tw = convert.from_numpy("window", a, device="cpu")
     np.testing.assert_allclose(tsolve.scale_nullspace(tw, 0).numpy(),
                                np.asarray(jsolve.scale_nullspace(jw, 0)), rtol=1e-5, atol=1e-6)
     np.testing.assert_array_equal(tsolve.prior_offset(tw).numpy(),
@@ -175,7 +175,8 @@ def test_run_ba_ladder_and_result(wins, prior):
         A = rng.normal(size=(D, D))
         HM, bM = 10.0 * (A @ A.T) / D, rng.normal(size=D)
     jw2, sj = jsolve.run_ba(jw, HM, bM, CFG, anchor_slot=0)
-    tw2, stt = tsolve.run_ba(convert.from_numpy("window", a), HM, bM, CFG, anchor_slot=0)
+    tw2, stt = tsolve.run_ba(convert.from_numpy("window", a, device="cpu"), HM, bM, CFG,
+                             anchor_slot=0)
     # the same accept/reject sequence: the λ after every iteration, and the
     # number of accepted steps of the reference's fused device loop
     assert stt.lam_ladder == _jax_ladder(jw, HM, bM)
@@ -201,7 +202,8 @@ def test_marginalize_points_and_frame(wins):
     mask = np.zeros(a["p_valid"].shape[0], bool)
     mask[:40] = True
     Hj, bj = jmarg.marginalize_points(jw, mask, HM, bM, CFG)
-    Ht, bt = tmarg.marginalize_points(convert.from_numpy("window", a), mask, HM, bM, CFG)
+    Ht, bt = tmarg.marginalize_points(convert.from_numpy("window", a, device="cpu"), mask,
+                                      HM, bM, CFG)
     # the f32 FEJ assembly of 40 points, folded in f64
     _close(Ht, Hj, rtol=2e-3, rel_atol=1e-5)
     _close(bt, bj, rtol=2e-3, rel_atol=1e-5)
@@ -215,7 +217,7 @@ def test_marginalize_points_and_frame(wins):
 def test_window_ops(wins):
     """insert/remove frame, add/drop points, connect, activate_points_device."""
     jw, a = wins
-    tw = convert.from_numpy("window", a)
+    tw = convert.from_numpy("window", a, device="cpu")
     rng = np.random.default_rng(9)
     slots = np.full(20, CFG.shapes.max_points, np.int32)
     slots[:12] = np.arange(150, 162)

@@ -72,7 +72,7 @@ def test_fused_step_diag_and_bank(step_inputs):
     t_ref = ttr.make_tracker_ref(*map(torch.tensor, s["ref"]), CFG.shapes.pyr_levels)
     b = tfs.fused_step(
         torch.tensor(s["img"]), t_ref, torch.tensor(s["T_last"]), torch.tensor(s["T_prelast"]),
-        torch.zeros(2), convert.from_numpy("bank", s["bank"]),
+        torch.zeros(2), convert.from_numpy("bank", s["bank"], device="cpu"),
         *(torch.tensor(s["win"][k]) for k in ("T_eval", "x", "exposure")),
         torch.eye(4), torch.tensor(s["intr"]), 1.0, CFG)
 

@@ -67,9 +67,9 @@ def test_kf_activate(state, mad_px):
     jb = jbank.Bank(**{f: jnp.asarray(v) for f, v in b.items()})
     wj, dj, sj = jlife.kf_activate(jw, jb, jnp.asarray(intr), jnp.int32(2),
                                    jnp.float32(mad_px), CFG)
-    wt, dt, st = tlife.kf_activate(convert.from_numpy("window", w),
-                                   convert.from_numpy("bank", b), torch.tensor(intr), 2,
-                                   mad_px, CFG)
+    wt, dt, st = tlife.kf_activate(convert.from_numpy("window", w, device="cpu"),
+                                   convert.from_numpy("bank", b, device="cpu"),
+                                   torch.tensor(intr), 2, mad_px, CFG)
     # gates, spacing cells, ranks and slots are discrete: exact
     np.testing.assert_array_equal(dt.numpy(), np.asarray(dj))
     np.testing.assert_array_equal(st.numpy(), np.asarray(sj))
@@ -109,7 +109,7 @@ def test_seed_patch_and_bank_ops(state, seeds):
     dying = np.zeros(CFG.shapes.max_frames, bool)
     dying[1] = True
     jb = jbank.Bank(**{f: jnp.asarray(v) for f, v in b.items()})
-    tb = convert.from_numpy("bank", b)
+    tb = convert.from_numpy("bank", b, device="cpu")
     pj = jlife.compute_seed_patch(jb, sj, jnp.int32(2), jnp.asarray(dying), CFG)
     pt = tlife.compute_seed_patch(tb, st, 2, torch.tensor(dying), CFG)
     for x, y in zip(pt, pj):

@@ -73,7 +73,7 @@ def test_match_identical(feats, ratio):
 def vocabs(feats):
     descs = np.concatenate([d for d, _ in feats])
     return (jbow.train_vocabulary(descs, k=6, levels=3, seed=0),
-            tbow.train_vocabulary(descs, k=6, levels=3, seed=0))
+            tbow.train_vocabulary(descs, k=6, levels=3, seed=0, device="cpu"))
 
 
 def test_train_vocabulary_identical_tree(vocabs):

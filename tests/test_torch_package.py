@@ -30,7 +30,9 @@ def test_import_pulls_in_no_jax():
             "ldso_tpu_torch.cameras, ldso_tpu_torch.io.photometric, "
             "ldso_tpu_torch.io.datasets, ldso_tpu_torch.io.checkpoint, "
             "ldso_tpu_torch.native, ldso_tpu_torch.viz, ldso_tpu_torch.cli, "
-            "ldso_tpu_torch.eval.ate; "
+            "ldso_tpu_torch.eval.ate, ldso_tpu_torch.eval.toys, "
+            "ldso_tpu_torch.distributed.mesh, ldso_tpu_torch.distributed.sharded_ba, "
+            "ldso_tpu_torch.distributed.sharded_pgo, ldso_tpu_torch.graft_entry; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'ldso_tpu')); "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -176,7 +178,7 @@ def test_bow_training_copy_equals_original(k, levels, max_train):
     rng = np.random.default_rng(0)
     desc = rng.integers(0, 256, size=(600, 32), dtype=np.uint8)
     _assert_same_vocab(tbow.train_vocabulary(desc, k=k, levels=levels, seed=3,
-                                             max_train=max_train),
+                                             max_train=max_train, device="cpu"),
                        jbow.train_vocabulary(desc, k=k, levels=levels, seed=3,
                                              max_train=max_train))
     bits = rng.integers(0, 2, size=(7, 256)).astype(np.float32)
@@ -190,17 +192,19 @@ def test_bow_text_converter_copy_equals_original():
     rng = np.random.default_rng(1)
     desc = rng.integers(0, 256, size=(400, 32), dtype=np.uint8)
     jv = jbow.train_vocabulary(desc, k=4, levels=3, seed=0)
-    tv = tbow.train_vocabulary(desc, k=4, levels=3, seed=0)
+    tv = tbow.train_vocabulary(desc, k=4, levels=3, seed=0, device="cpu")
     text = jbow.save_vocabulary_text(jv)
     assert tbow.save_vocabulary_text(tv) == text
     for trunc in (None, 2):
-        _assert_same_vocab(tbow.load_vocabulary_text(text, truncate_levels=trunc),
+        _assert_same_vocab(tbow.load_vocabulary_text(text, truncate_levels=trunc,
+                                                     device="cpu"),
                            jbow.load_vocabulary_text(text, truncate_levels=trunc))
     # a foreign tree with early leaves (tests/test_loop.py's hand-built one)
     d = [" ".join(str(x) for x in rng.integers(0, 256, 32)) for _ in range(6)]
     lines = "\n".join(["2 3 0 0", f"0 0 {d[0]} 0", f"0 1 {d[1]} 0.5", f"1 0 {d[2]} 0",
                        f"1 1 {d[3]} 0.25", f"3 1 {d[4]} 0.75", f"3 1 {d[5]} 1.25"])
-    _assert_same_vocab(tbow.load_vocabulary_text(lines), jbow.load_vocabulary_text(lines))
+    _assert_same_vocab(tbow.load_vocabulary_text(lines, device="cpu"),
+                       jbow.load_vocabulary_text(lines))
 
 
 def test_build_edges_copy_equals_original():
@@ -239,7 +243,7 @@ def test_convert_round_trip_window_bank_ref():
     for kind, obj in (("window", win), ("bank", bank), ("tracker_ref", ref)):
         arrays = {f: (tuple(np.asarray(a) for a in v) if isinstance(v, tuple)
                       else np.asarray(v)) for f, v in obj._asdict().items()}
-        back = convert.to_numpy(convert.from_numpy(kind, arrays))
+        back = convert.to_numpy(convert.from_numpy(kind, arrays, device="cpu"))
         for f, v in arrays.items():
             vs = v if isinstance(v, tuple) else (v,)
             bs = back[f] if isinstance(back[f], tuple) else (back[f],)
@@ -249,3 +253,52 @@ def test_convert_round_trip_window_bank_ref():
                                    np.int32 if np.issubdtype(x.dtype, np.integer)
                                    else np.float32), (kind, f)
                 np.testing.assert_array_equal(x.astype(y.dtype), y)
+
+
+def test_partition_pose_graph_copy_equals_original():
+    from ldso_tpu.distributed import sharded_pgo as jspgo
+    from ldso_tpu_torch.distributed import sharded_pgo as tspgo
+
+    rng = np.random.default_rng(4)
+    K = 70
+    ei = np.concatenate([np.arange(1, K), rng.integers(K // 2, K, 9)]).astype(np.int32)
+    ej = np.concatenate([np.arange(0, K - 1), rng.integers(0, K // 4, 9)]).astype(np.int32)
+    S_meas = rng.normal(size=(len(ei), 4, 4)).astype(np.float32)
+    w = rng.random(len(ei)).astype(np.float32)
+    w[::7] = 0.0                                     # padding slots are skipped
+    for n in (3, 4):
+        a = tspgo.partition_pose_graph(K, ei, ej, S_meas, w, n)
+        b = jspgo.partition_pose_graph(K, ei, ej, S_meas, w, n)
+        assert a.keys() == b.keys()
+        for k in a:
+            x, y = np.asarray(a[k]), np.asarray(b[k])
+            assert x.dtype == y.dtype, k
+            np.testing.assert_array_equal(x, y, err_msg=k)
+
+
+def _device_default(fn):
+    return inspect.signature(fn).parameters["device"]
+
+
+@pytest.mark.parametrize("name", ["loop.bow.train_vocabulary", "loop.bow.load_vocabulary_text",
+                                  "convert.from_numpy"])
+def test_no_cpu_default_for_a_device(name):
+    # these build state a caller then uses: without a device the caller
+    # would get CPU tensors it never asked for
+    import importlib
+
+    mod, fn = name.rsplit(".", 1)
+    p = _device_default(getattr(importlib.import_module(f"ldso_tpu_torch.{mod}"), fn))
+    assert p.kind is inspect.Parameter.KEYWORD_ONLY and p.default is inspect.Parameter.empty
+
+
+@pytest.mark.parametrize("name", ["eval.toys.make_synthetic_window", "graft_entry.entry",
+                                  "graft_entry.dryrun_multichip",
+                                  "distributed.sharded_pgo.shard_edges",
+                                  "distributed.sharded_pgo.make_block_pgo"])
+def test_new_entry_points_default_to_the_card(name):
+    import importlib
+
+    mod, fn = name.rsplit(".", 1)
+    assert _device_default(getattr(importlib.import_module(f"ldso_tpu_torch.{mod}"),
+                                   fn)).default == "cuda"

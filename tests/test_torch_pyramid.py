@@ -135,3 +135,23 @@ def test_cuda_kernel_matches_plain(dtype):
                 h >> 4, w >> 4)
             _compare([p.cpu() for p in pyr_k], [g.cpu() for g in gsq_k],
                      [p.cpu() for p in pyr_p], [g.cpu() for g in gsq_p])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h,w", [(480, 640), (240, 320), (96, 128)])
+def test_cuda_kernel_one_level_float32(h, w):
+    # the toy windows (eval/toys.py) build each frame at one level from
+    # float32: the kernel's one-level branch, one launch
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from ldso_tpu_torch.kernels import pallas_pyramid
+
+    img = torch.from_numpy(_image(np.float32, (h, w))).cuda()
+    before = pallas_pyramid.LAUNCHES
+    pyr_k, gsq_k = pallas_pyramid.build_pyramid_cuda(img, 1)
+    torch.cuda.synchronize()
+    assert pallas_pyramid.LAUNCHES == before + 1
+    assert len(pyr_k) == 1 and pyr_k[0].shape == (h, w, 3) and gsq_k[0].shape == (h, w)
+    pyr_p, gsq_p = tpyr.build_pyramid_torch(img, 1)
+    _compare([p.cpu() for p in pyr_k], [g.cpu() for g in gsq_k],
+             [p.cpu() for p in pyr_p], [g.cpu() for g in gsq_p])

@@ -140,7 +140,7 @@ def test_optimize_idepth_bank_and_activation(scene):
     expo = np.ones(F, np.float32)
     bank = _bank_numpy(scene)
     j_bank = jbank.Bank(**{f: jnp.asarray(v) for f, v in bank.items()})
-    t_bank = convert.from_numpy("bank", bank)
+    t_bank = convert.from_numpy("bank", bank, device="cpu")
     a = jtrace.activate_candidates_device(
         jnp.asarray(np.stack(scene["j_img3"])), jnp.ones(F, bool), jnp.asarray(T_all),
         jnp.asarray(x), jnp.asarray(expo), j_bank, jnp.asarray(scene["intr"]),
