@@ -9,7 +9,9 @@ Phases, one result line each (any failure raises and exits non-zero):
   1. device: the card's name and power limit, torch/CUDA versions and the
      float32 precision flags;
   2. build: compile every kernel of the main path from ``ldso_tpu_torch/csrc``
-     and, beside it, the native image loader ``ldso_tpu_torch/native/loader.cc``
+     (the pyramid and the tracker level, each its own nvcc, started
+     together, with the tracker kernel's ``ptxas -v`` report beside them)
+     and the native image loader ``ldso_tpu_torch/native/loader.cc``
      (host C++; if it cannot be built the reason is printed and the Python
      decoders serve phase 7); meanwhile a pool of worker processes, one
      per CPU core up to 8, renders the bench and loop sequences and phase
@@ -30,7 +32,19 @@ Phases, one result line each (any failure raises and exits non-zero):
      (corner-biased seeding on) over the 120-frame bench sequence (seed 3,
      corridor, forward_arc, 640x480, uint8), checked against the
      ground-truth trajectory (ATE <= 6% of extent) and for corner-seeded
-     activations;
+     activations; the tracker kernel launched 5 times per tracked frame
+     (one per level), as in every later drive; frames 40..59 traced with
+     torch.profiler (device kernels per frame, the device's busy share, host
+     and device ms of the pyramid, the tracker, the trace and the keyframe
+     path), and the tracking inputs of frames 20, 60 and 100 kept;
+  4b. the tracker kernel on those real inputs: at each of the five levels,
+     as ``track_frame`` chains them, the kernel against
+     ``track_level_torch`` (T, ab, the rmse of every lane, the counts), the
+     iterations each level ran, and on frame 60 each level's device ms
+     beside its bound and the plain version's ms; the device kernels of one
+     ``track_frame`` call of each version and of one whole ``fused_step``
+     (torch.profiler); one ``track_frame`` under
+     ``torch.cuda.set_sync_debug_mode("error")`` (no host sync);
   5. loop closure: the loop sequence of the JAX package's
      ``bench.py::bench_loop_closure`` (``preset("default")``, 320x240, 240
      frames, seed 5, out_and_back, uint8) driven twice, loop closure off
@@ -89,8 +103,9 @@ Phases, one result line each (any failure raises and exits non-zero):
      all-reduce of 7,225 floats per step, energy down over 3 steps, a 2x2
      mesh against 1-D; the edge-sharded PGO on a 24-KF test circle and
      the block-halo PGO on the 4096-KF, 40-loop test curve against
-     ``optimize_pose_graph``; ``graft_entry.dryrun_multichip``; replicated
-     results bitwise equal on every rank. A rank that fails, or has not
+     ``optimize_pose_graph``, solved twice with bitwise-equal results (its
+     scatter-adds sum in a fixed order); ``graft_entry.dryrun_multichip``;
+     replicated results bitwise equal on every rank. A rank that fails, or has not
      ended within ``DIST_TIMEOUT_S``, fails the phase.
 Then a JSON line of per-kernel results, the card line again, and as the
 last line ``{"ok": true, "device": {...}}``. There is no CPU path; the CPU
@@ -101,6 +116,7 @@ tests (tests/test_torch_distributed.py) run phase 8's rank program at
 from __future__ import annotations
 
 import collections
+import contextlib
 import json
 import os
 import statistics
@@ -140,6 +156,32 @@ DIST_TIMEOUT_S = 300.0       # a phase-8 rank run that has not ended by then fai
 # (K, loops, LM, CG)
 DIST_SPEC = dict(preset="default", ba_steps=3, circle=[(3, 15, 80)],
                  curve=(4096, 40, 6, 40), dryrun=True)
+# the tracker kernel against its plain version (phase 4's check): the
+# bounds of tests/test_torch_tracker.py::test_track_frame (float32 LM on
+# both sides, sums in another order), counts within 1% of the level's points
+TRACK_T_ATOL, TRACK_AB_ATOL, TRACK_RMSE_RTOL, TRACK_COUNT_FRAC = 2e-4, 2e-3, 2e-3, 0.01
+# an accept decision on a step that changes the energy per point by at most
+# this much (relative) is a tie: the two versions' energies at one state
+# differ by up to ~2e-6 relative (sums of up to 2048 float32 terms in
+# another order). A lane whose runs part at such a tie keeps T, rmse and
+# counts to the bounds above and ab to TRACK_TIE_AB_ATOL: on bench frame 60,
+# level 2, the kernel and the plain version end 8.4e-3 apart in ab, and the
+# JAX package and the port's plain version part the same way on one CPU,
+# 4.2e-3 apart (scripts/parity_track_level_replay.py; PERF.md, Findings).
+# More than TRACK_MAX_TIES such lanes in one frame fail the check.
+TRACK_TIE_RTOL, TRACK_TIE_AB_ATOL, TRACK_MAX_TIES = 1e-5, 2e-2, 2
+TRACK_CAPTURE = (20, 60, 100)     # bench frames whose tracking inputs phase 4 keeps
+TRACK_PROFILE = tuple(range(40, 60))   # bench frames phase 4 traces with torch.profiler
+TRACK_MAX_EVENTS = 60             # device kernels one track_frame call may take
+# flops of one point evaluation in csrc/track_level.cu's evaluate: every
+# point xh 4, X 18, z test 2, projection 3 + 4, bounds 4, bilinear sample
+# 33, residual and Huber 9 (77); a point with omega > 0 also J 31 and the
+# H / b / E sums 99 (130)
+TRACK_FLOPS_POINT, TRACK_FLOPS_OK = 77, 130
+# flops of one LM step on a lane's thread 0 (lm_step and the accept test):
+# damping 27, LU of the 8x9 system 372, back substitution 64, negation 8,
+# the SE(3) exponential and T_new 260, accept / lambda / max|step| 20
+TRACK_FLOPS_STEP = 751
 
 
 def _card_line() -> str:
@@ -289,20 +331,25 @@ def _ate_pct(system, ds) -> float:
     return 100.0 * rmse / float(np.linalg.norm(gt_c.max(0) - gt_c.min(0)))
 
 
-def drive_bench(cfg, ds, frames, dev, sync) -> dict:
+def drive_bench(cfg, ds, frames, dev, sync, probe=None) -> dict:
     """Phase 4: sync FullSystem over ``frames``; fails on a lost frame, no
     initialization, no marginalization, no corner-seeded activation or
-    ATE above the floor."""
+    ATE above the floor. A ``probe`` (``BenchProbe``) is called before and
+    after each frame; the frames it profiles stay out of the rate."""
     from ldso_tpu_torch.system import FullSystem
 
     system = FullSystem(cfg, ds.intrinsics(), ds.w, ds.h, device=dev)
     t_frames, statuses, n_corner_act = [], [], 0
     t0 = time.perf_counter()
-    for img_np, ts, expo in frames:
+    for i, (img_np, ts, expo) in enumerate(frames):
+        if probe is not None:
+            probe.before(i)
         t_a = time.perf_counter()
         st = system.add_frame(img_np, ts, expo)
         sync()
         t_frames.append(time.perf_counter() - t_a)
+        if probe is not None:
+            probe.after(i)
         statuses.append(st["status"])
         n_corner_act += st.get("n_corner_act", 0)
         if st["status"] == "lost":
@@ -320,11 +367,367 @@ def drive_bench(cfg, ds, frames, dev, sync) -> dict:
     ate = _ate_pct(system, ds)
     if not ate <= ATE_MAX_PCT:
         raise RuntimeError(f"ATE {ate:.3f}% of extent > {ATE_MAX_PCT}%")
+    profiled = set(probe.profile) if probe is not None else set()
+    t_rate = [t for i, t in enumerate(t_frames) if i >= N_WARM and i not in profiled]
     return dict(ate=ate, n_tracked=statuses.count("tracked"), n_kf=len(system.kfs),
                 n_marg=n_marg, n_corner_act=n_corner_act,
                 n_init=statuses.index("initialized") + 1,
-                fps=(len(t_frames) - N_WARM) / sum(t_frames[N_WARM:]),
+                fps=len(t_rate) / sum(t_rate), n_rate=len(t_rate),
                 fps_all=fps_all, latency_ms=list(system.frame_latency_ms))
+
+
+def _clone(x):
+    """A copy of a call's arguments: tensors cloned, (named) tuples and
+    lists rebuilt, anything else as it is."""
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, tuple):
+        items = [_clone(a) for a in x]
+        return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
+    if isinstance(x, list):
+        return [_clone(a) for a in x]
+    return x
+
+
+class BenchProbe:
+    """Phase 4's instruments, switched on around chosen frames of the drive.
+
+    On the frames of ``capture`` it keeps (cloned) the arguments of
+    ``tracker.track_frame`` and ``frame_step.fused_step``: the system's real
+    tracker ref, pyramid, hypotheses and state. Over the frames of
+    ``profile`` it runs ``torch.profiler`` with the pyramid build, the
+    tracker, the trace and the keyframe path each under a
+    ``record_function`` label, and keeps the host-clock wall time."""
+
+    LABELS = ("pyramid", "tracker", "trace", "keyframe")
+
+    def __init__(self, capture, profile):
+        self.capture, self.profile = tuple(capture), tuple(profile)
+        self.inputs = {}
+        self.prof, self.wall_s, self._t0 = None, 0.0, 0.0
+        self._undo = []
+
+    def _patch(self, obj, name, wrap):
+        orig = getattr(obj, name)
+        setattr(obj, name, wrap(orig))
+        self._undo.append((obj, name, orig))
+
+    def _restore(self):
+        while self._undo:
+            obj, name, orig = self._undo.pop()
+            setattr(obj, name, orig)
+
+    def before(self, i: int) -> None:
+        import torch
+
+        from ldso_tpu_torch import frame_step, tracker
+        from ldso_tpu_torch.system import FullSystem
+
+        if i in self.capture:
+            rec = self.inputs.setdefault(i, {})
+
+            def keep(key):
+                def wrap(fn):
+                    def kept(*args):
+                        rec[key] = _clone(args)
+                        return fn(*args)
+                    return kept
+                return wrap
+
+            self._patch(tracker, "track_frame", keep("track"))
+            self._patch(frame_step, "fused_step", keep("step"))
+        if self.profile and i == self.profile[0]:
+            def label(name):
+                def wrap(fn):
+                    def labelled(*args, **kw):
+                        with torch.profiler.record_function(name):
+                            return fn(*args, **kw)
+                    return labelled
+                return wrap
+
+            for obj, attr, name in ((frame_step, "build_pyramid", "pyramid"),
+                                    (tracker, "track_frame", "tracker"),
+                                    (frame_step, "_trace_core", "trace"),
+                                    (FullSystem, "_make_keyframe", "keyframe")):
+                self._patch(obj, attr, label(name))
+            act = torch.profiler.ProfilerActivity
+            self.prof = torch.profiler.profile(activities=[act.CPU, act.CUDA])
+            self.prof.__enter__()
+            self._t0 = time.perf_counter()
+
+    def after(self, i: int) -> None:
+        if self.profile and i == self.profile[-1]:
+            self.wall_s = time.perf_counter() - self._t0
+            self.prof.__exit__(None, None, None)
+            self._restore()
+        elif i in self.capture:
+            self._restore()
+
+    def summary(self) -> dict:
+        """Launches per frame, the device's busy share of the window, and
+        host and device ms per frame of each label."""
+        from torch.autograd import DeviceType
+
+        events = self.prof.events()
+        dev = [e for e in events if e.device_type == DeviceType.CUDA
+               and e.name not in self.LABELS]
+        n = len(self.profile)
+        busy_us = sum(e.device_time_total for e in dev)
+        out = dict(frames=n, launches_per_frame=len(dev) / n, wall_ms=1e3 * self.wall_s / n,
+                   busy=busy_us / (1e6 * self.wall_s) if dev else None)
+        for name in self.LABELS:
+            ev = [e for e in events if e.name == name and e.device_type == DeviceType.CPU]
+            out[name] = dict(calls=len(ev), host_ms=sum(e.cpu_time_total for e in ev) / 1e3 / n,
+                             device_ms=sum(e.device_time_total for e in ev) / 1e3 / n)
+        return out
+
+
+def _device_events(fn) -> tuple:
+    """(device events, their device ms) of one call of ``fn`` (warmed up
+    once first), read from torch.profiler: every kernel, copy and set."""
+    import torch
+    from torch.autograd import DeviceType
+
+    fn()
+    torch.cuda.synchronize()
+    act = torch.profiler.ProfilerActivity
+    with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return len(dev), sum(e.device_time_total for e in dev) / 1e3
+
+
+@contextlib.contextmanager
+def plain_tracker():
+    """Within the block, ``tracker.track_frame`` runs its levels through
+    the plain version ``track_level_torch`` also on the card: the yardstick
+    of the kernel, never the port's path."""
+    from ldso_tpu_torch import tracker
+
+    kernel = tracker.track_level
+    tracker.track_level = tracker.track_level_torch
+    try:
+        yield
+    finally:
+        tracker.track_level = kernel
+
+
+def _footprint_texels(lv, kw, Ts) -> int:
+    """The distinct texels of a level's [h, w, 3] stack whose bilinear
+    corners an evaluation at each pose of ``Ts`` [M, 4, 4] reads, as
+    csrc/track_level.cu's evaluate places them (a point not in bounds reads
+    the corners at (2, 2))."""
+    import torch
+
+    _, uv, idepth, _, valid, _, _, intr = lv
+    w, h = kw["w"], kw["h"]
+    fx, fy, cx, cy = intr
+    xh = torch.stack([(uv[:, 0] - cx) / fx, (uv[:, 1] - cy) / fy,
+                      torch.ones_like(idepth)], -1)
+    X = torch.einsum("mij,nj->mni", Ts[:, :3, :3], xh) + Ts[:, None, :3, 3] * idepth[:, None]
+    ok_z = X[..., 2] > 1e-6
+    sz = torch.where(ok_z, X[..., 2], torch.ones_like(X[..., 2]))
+    un, vn = fx * (X[..., 0] / sz) + cx, fy * (X[..., 1] / sz) + cy
+    inb = (un >= 2) & (un < w - 3) & (vn >= 2) & (vn < h - 3) & ok_z & valid
+    two = torch.full_like(un, 2.0)
+    u0 = torch.where(inb, un, two).floor().long().clamp(0, w - 1)
+    v0 = torch.where(inb, vn, two).floor().long().clamp(0, h - 1)
+    u1, v1 = (u0 + 1).clamp(max=w - 1), (v0 + 1).clamp(max=h - 1)
+    return int(torch.cat([v0 * w + u0, v0 * w + u1, v1 * w + u0, v1 * w + u1],
+                         -1).unique().numel())
+
+
+def track_level_bound_ms(lv, kw, out_k) -> tuple:
+    """The least time the card could take for one level's LM loop as this
+    run's data drove it (``out_k``, the kernel's result on ``lv`` / ``kw``):
+    the larger of its bytes over the memory rate and its operations over
+    the float32 rate. Bytes: the texels read at the lanes' first and final
+    poses (both are evaluated; the steps between read more), 12 B each,
+    the N points' uv, idepth, color and valid (17 B) and the lanes' inputs
+    and outputs, each once. Operations: per lane, TRACK_FLOPS_POINT for
+    each of N points in each of its 1 + n_iter evaluations, TRACK_FLOPS_OK
+    more for each point with omega > 0 (the kernel's n_ok summed over
+    them), TRACK_FLOPS_STEP an iteration. Returns (ms, bound_by, bytes,
+    flops)."""
+    import torch
+
+    n, k = lv[1].shape[0], lv[5].shape[0]
+    texels = _footprint_texels(lv, kw, torch.cat([lv[5], out_k[0]]))
+    n_bytes = (12 * texels + 17 * n + 16 + k * (64 + 8)
+               + k * (64 + 8 + 4 + 24 + 4 + 8))
+    n_iter = int(out_k[6].sum())
+    flops = (TRACK_FLOPS_POINT * n * (k + n_iter) + TRACK_FLOPS_OK * int(out_k[7].sum())
+             + TRACK_FLOPS_STEP * n_iter)
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
+    return (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
+            n_bytes, flops)
+
+
+def track_level_chain(args):
+    """Walk one tracked frame's levels as ``tracker.track_frame`` chains
+    them, with the plain version: ``args`` are ``track_frame``'s. Yields
+    (level, the level's arguments, its keywords, the plain version's
+    result); the next level starts from that result (the coarse stage's
+    winner by rmse before the first fine level)."""
+    import torch
+
+    from ldso_tpu_torch import tracker
+
+    pyr, ref, T_inits, ab_init, intr, cfg = args
+    levels, tc = len(pyr), cfg.tracker
+    iters = list(tc.max_iterations) + [50] * levels
+    intr_l = tracker._level_intrinsics_all(intr, levels)
+    K = T_inits.shape[0]
+    T, ab = T_inits, ab_init.expand(K, 2).contiguous()
+    coarse = list(range(levels - 1, max(levels - 3, 0), -1))
+    fine = list(range(max(levels - 3, 0), -1, -1))
+    rm = None
+    for l in coarse + fine:
+        if l == fine[0]:
+            inf = float("inf")
+            best = torch.argmin(torch.nan_to_num(rm, nan=inf, posinf=inf, neginf=inf))[None]
+            T, ab = T.index_select(0, best), ab.index_select(0, best)
+        lv = (pyr[l], ref.uv[l], ref.idepth[l], ref.color[l], ref.valid[l], T, ab, intr_l[l])
+        kw = dict(w=pyr[l].shape[1], h=pyr[l].shape[0],
+                  iters=min(int(iters[l]), 12) if l in coarse else int(iters[l]),
+                  cutoff=float(tc.coarse_cutoff_th * (2.0 ** l)), huber_th=float(tc.huber_th),
+                  lam0=float(tc.lambda_initial), lam_success=float(tc.lambda_success),
+                  lam_fail=float(tc.lambda_fail), step_eps=float(tc.step_eps))
+        out_p = tracker.track_level_torch(*lv, **kw)
+        yield l, lv, kw, out_p
+        T, ab, rm = out_p[0], out_p[1], out_p[2]
+
+
+def cap_walk(lv, kw):
+    """Run one level's kernel and plain version again with the iteration
+    cap at 1, 2, ... up to the level's own; yields (cap, the kernel's
+    result, the plain version's)."""
+    from ldso_tpu_torch import tracker
+    from ldso_tpu_torch.kernels import track_level as ktl
+
+    for cap in range(1, kw["iters"] + 1):
+        kc = dict(kw, iters=cap)
+        yield cap, ktl.track_level_cuda(*lv, **kc), tracker.track_level_torch(*lv, **kc)
+
+
+def _tie_parting(lv, kw, lane: int):
+    """Where lane ``lane`` of one level's kernel and plain runs part: both
+    are run again with the iteration cap at 1, 2, ... (``cap_walk``); at
+    the first cap where the lane's T or ab differ by more than a hundredth
+    of the bounds (the states one cap before agree), exactly one version
+    must have moved (accepted a step the other rejected, or took a step
+    where the other had stopped), on a step that changed its own energy
+    per point (rmse², what the accept test compares) by at most
+    TRACK_TIE_RTOL: a decision that the float32 sums cannot resolve.
+    Returns (cap, which version moved, the relative energy change), or
+    None if the runs part otherwise."""
+    import torch
+
+    prev = None
+    for cap, out_k, out_p in cap_walk(lv, kw):
+        k, p = [t[lane] for t in out_k], [t[lane] for t in out_p]
+        if (float((k[0] - p[0]).abs().max()) > TRACK_T_ATOL / 100
+                or float((k[1] - p[1]).abs().max()) > TRACK_AB_ATOL / 100):
+            if prev is None:
+                return None
+            moved = [not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]))
+                     for a, b in ((k, prev[0]), (p, prev[1]))]
+            if moved[0] == moved[1]:
+                return None
+            before, after = (prev[0], k) if moved[0] else (prev[1], p)
+            e0, e1 = float(before[2]) ** 2, float(after[2]) ** 2
+            rho = (e0 - e1) / max(e0, 1e-12)
+            if not 0.0 <= rho <= TRACK_TIE_RTOL:
+                return None
+            return dict(cap=cap, moved="kernel" if moved[0] else "plain", rho=rho)
+        prev = (k, p)
+    return None
+
+
+def check_track_level(name: str, args, time_it: bool = False) -> list:
+    """Hold the tracker kernel against the plain version on one tracked
+    frame's real inputs (``args`` of ``tracker.track_frame``), level by
+    level as ``track_frame`` chains them: the plain chain's inputs go to
+    both at each level. Per lane: T within TRACK_T_ATOL, rmse within
+    TRACK_RMSE_RTOL (the 27 coarse lanes one by one), counts within
+    TRACK_COUNT_FRAC of N_l, and ab within TRACK_AB_ATOL unless the two
+    runs part at a tie (``_tie_parting``), then within TRACK_TIE_AB_ATOL;
+    at most TRACK_MAX_TIES tied lanes over the frame. Returns a record per
+    level (coarsest first); with ``time_it`` also the kernel's device ms
+    and the plain version's host-clock ms."""
+    import torch
+
+    from ldso_tpu_torch import tracker
+    from ldso_tpu_torch.kernels import track_level as ktl
+
+    records = []
+    for l, lv, kw, out_p in track_level_chain(args):
+        out_k = ktl.track_level_cuda(*lv, **kw)
+        torch.cuda.synchronize()
+        n_l, k_l, h, w = lv[1].shape[0], lv[5].shape[0], kw["h"], kw["w"]
+        d_T = (out_k[0] - out_p[0]).abs().flatten(1).amax(1)
+        d_ab = (out_k[1] - out_p[1]).abs().amax(1)
+        d_rm = (out_k[2] - out_p[2]).abs() / out_p[2].abs().clamp(min=1e-6)
+        d_n = torch.stack([(a - b).abs() for a, b in zip(out_k[3:6], out_p[3:6])]).amax(0)
+        ties = {}
+        for lane in torch.nonzero(d_ab > TRACK_AB_ATOL).flatten().tolist():
+            tie = _tie_parting(lv, kw, lane)
+            if tie is None:
+                raise RuntimeError(
+                    f"tracker kernel disagrees on {name}, level {l}, lane {lane}: max|dab| "
+                    f"{float(d_ab[lane]):.3g} (atol {TRACK_AB_ATOL}), and the two runs do not "
+                    f"part at a tie: ab kernel {out_k[1][lane].tolist()} plain "
+                    f"{out_p[1][lane].tolist()}")
+            ties[lane] = tie
+        held = torch.ones_like(d_ab, dtype=torch.bool)
+        held[list(ties)] = False
+        e_T, e_rm = float(d_T.max()), float(d_rm.max())
+        e_ab = float(d_ab[held].max()) if bool(held.any()) else 0.0
+        e_ab_tie = float(d_ab[~held].max()) if ties else 0.0
+        e_n = int(d_n.max())
+        if not (e_T <= TRACK_T_ATOL and e_ab <= TRACK_AB_ATOL and e_rm <= TRACK_RMSE_RTOL
+                and e_n <= TRACK_COUNT_FRAC * n_l and e_ab_tie <= TRACK_TIE_AB_ATOL):
+            raise RuntimeError(
+                f"tracker kernel disagrees on {name}, level {l} ({k_l} lanes x {n_l} points):"
+                f" max|dT| {e_T:.3g} (atol {TRACK_T_ATOL}), max|dab| {e_ab:.3g} (atol "
+                f"{TRACK_AB_ATOL}; tied lanes {e_ab_tie:.3g}, atol {TRACK_TIE_AB_ATOL}), rmse "
+                f"rel {e_rm:.3g} (rtol {TRACK_RMSE_RTOL}), counts "
+                f"{e_n} (at most {TRACK_COUNT_FRAC * n_l:.1f}); rmse kernel "
+                f"{out_k[2].tolist()} plain {out_p[2].tolist()}")
+        bound, by, n_bytes, flops = track_level_bound_ms(lv, kw, out_k)
+        rec = dict(level=l, lanes=k_l, points=n_l, w=w, h=h, cap=kw["iters"],
+                   n_iter=out_k[6].tolist(), e_T=e_T, e_ab=e_ab, e_rm=e_rm, e_n=e_n,
+                   bound_ms=bound, bound_by=by, bytes=n_bytes, flops=flops,
+                   ties={k: dict(v, d_ab=float(d_ab[k])) for k, v in ties.items()})
+        if time_it:
+            rec["ms"] = _device_ms(lambda: ktl.track_level_cuda(*lv, **kw))
+            rec["plain_ms"] = _timed_ms(lambda: tracker.track_level_torch(*lv, **kw),
+                                        torch.cuda.synchronize, reps=3)
+        records.append(rec)
+    n_ties = sum(len(r["ties"]) for r in records)
+    if n_ties > TRACK_MAX_TIES:
+        raise RuntimeError(f"tracker kernel on {name}: {n_ties} lanes parted at a tie, more "
+                           f"than {TRACK_MAX_TIES}")
+    return records
+
+
+def _iters_text(rec: dict) -> str:
+    """A level's iterations: the lane's count, or over many lanes the
+    largest and the sum."""
+    it = rec["n_iter"]
+    if len(it) == 1:
+        return f"{it[0]} of {rec['cap']}"
+    return f"max {max(it)} of {rec['cap']}, {sum(it)} over {len(it)} lanes"
+
+
+def _check_track_launches(phase: str, launched: int, tracked: int) -> None:
+    """Five tracker launches, one per pyramid level, for each tracked frame."""
+    if launched != LEVELS * tracked:
+        raise RuntimeError(f"{phase}: tracker kernel launched {launched} times for "
+                           f"{tracked} tracked frames, expected {LEVELS * tracked}")
 
 
 def _pctl(xs, q: float) -> float:
@@ -411,6 +814,7 @@ def drive_async(cfg, ds, frames, dev, sync, ate_sync: float, *, batched: bool = 
                n_kf=len(system.kfs), n_marg=n_marg, fps_all=n_fed / dt,
                lat_med=statistics.median(lat), lat_p95=_pctl(lat, 0.95),
                kf_suppressed=system.kf_suppressed, kf_shed_events=system.kf_shed_events,
+               kf_stale_waits=system.kf_stale_waits,
                # one pyramid launch per bootstrap frame, then per frame, or
                # per full batch and per tail frame
                launches_expected=(n_init + n_tracked // BATCH + n_tracked % BATCH
@@ -439,9 +843,10 @@ def _mode_line(name: str, r: dict) -> str:
             f"tracked, 0 lost), {r['fps_all']:.3f} frames/s, latency median "
             f"{r['lat_med']:.1f} ms p95 {r['lat_p95']:.1f} ms, {r['n_kf']} KFs "
             f"({r['n_marg']} marginalized), kf_suppressed {r['kf_suppressed']}, "
-            f"kf_shed_events {r['kf_shed_events']}, ATE {r['ate']:.4f}% (bound "
+            f"kf_shed_events {r['kf_shed_events']}, staleness waits {r['kf_stale_waits']}, "
+            f"ATE {r['ate']:.4f}% (bound "
             f"{r['bound']:.3f}%), pyramid launches {r['launches']} (expected "
-            f"{r['launches_expected']}){extra}")
+            f"{r['launches_expected']}), tracker launches {r['track_launches']}{extra}")
 
 
 def _drive_loop(cfg, ds, frames, dev, sync, loop_on: bool) -> dict:
@@ -622,11 +1027,14 @@ def drive_resume(cfg, root_dir: str, out_dir: str, dev, sync) -> dict:
         reader.close()
     h, w = frames[0][0].shape
 
+    n_tracked = [0]
+
     def feed(system, lo, hi):
         for i in range(lo, hi):
             st = system.add_frame(*frames[i])
             if st["status"] == "lost":
                 raise RuntimeError(f"resume drive: lost at frame {i}: {st}")
+            n_tracked[0] += st["status"] == "tracked"
 
     path = os.path.join(out_dir, "ckpt")
     a = FullSystem(cfg, intr, w, h, device=dev)
@@ -655,7 +1063,7 @@ def drive_resume(cfg, root_dir: str, out_dir: str, dev, sync) -> dict:
     return dict(gap=gap, n_frames=len(frames), n_kf=(len(a.kfs), len(b.kfs)),
                 t_save=t_save, t_load=t_load, n_bytes=n_bytes,
                 get_ms=1e3 * statistics.median(t_get),
-                launches_expected=2 * len(frames) - N_RESUME)
+                launches_expected=2 * len(frames) - N_RESUME, n_tracked=n_tracked[0])
 
 
 def reader_times(root_dir: str, dev, n: int = 20) -> dict:
@@ -713,7 +1121,7 @@ def distributed_rank(out_dir: str, spec: dict) -> None:
     alone; (2) the meshes: the default ``make_mesh_2d()``, one row per
     rank, 3 hosts (ValueError), an all-gather of 10·(rank + 1); the BA step
     on a 2×2 mesh; (3) the edge-sharded PGO on the test circles; (4) the
-    block PGO on the curve; (5) ``graft_entry.dryrun_multichip``."""
+    block PGO on the curve, twice; (5) ``graft_entry.dryrun_multichip``."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -823,6 +1231,9 @@ def distributed_rank(out_dir: str, spec: dict) -> None:
         out = run_blk(torch.as_tensor(S_p, **f32), torch.as_tensor(fixed_p, device=dev))
         res.update(block_E=float(out.energy), block_ms=1e3 * (time.perf_counter() - t),
                    block_S=out.S.cpu().numpy(), block_B=part["B"], block_H=part["H"])
+        # the same solve again: its sums run in a fixed order, so the same bits
+        again = run_blk(torch.as_tensor(S_p, **f32), torch.as_tensor(fixed_p, device=dev))
+        res.update(block_E_again=float(again.energy), block_S_again=again.S.cpu().numpy())
 
         # (5) the dry run, counting this rank's pyramid launches
         if spec["dryrun"]:
@@ -1018,12 +1429,16 @@ def check_distributed(results: list, refs: dict, win, cfg, spec: dict) -> dict:
     err_ref = float(np.linalg.norm(toys.sim3_centers(refs["block_S"]) - c_gt, axis=1).mean())
     err_blk = float(np.linalg.norm(toys.sim3_centers(S_blk) - c_gt, axis=1).mean())
     e_blk = float(r0["block_E"])
+    if not all(r["block_E_again"] == r["block_E"]
+               and np.array_equal(r["block_S_again"], r["block_S"]) for r in results):
+        fail(f"block PGO at K = {K} solved twice: energies {e_blk!r} and "
+             f"{float(r0['block_E_again'])!r}, or the poses differ (ROADMAP G7)")
     if not (H < B // 4 and e_blk < BLOCK_E_FACTOR * refs["block_E"] + 1e-6
             and err_blk < BLOCK_ERR_FACTOR * err_ref + BLOCK_ERR_ATOL):
         fail(f"block PGO at K = {K}: H {H}, B {B}; energy {e_blk:.6g} against "
              f"{refs['block_E']:.6g}; centre error {err_blk:.5g} against {err_ref:.5g}")
-    out["block"] = dict(B=B, H=H, E=e_blk, E_ref=refs["block_E"], err=err_blk,
-                        err_ref=err_ref)
+    out["block"] = dict(B=B, H=H, E=e_blk, E_again=float(r0["block_E_again"]),
+                        E_ref=refs["block_E"], err=err_blk, err_ref=err_ref)
     if spec["dryrun"]:
         if not np.isfinite(r0["dryrun"]).all():
             fail(f"dry run energies {r0['dryrun'].tolist()}")
@@ -1112,7 +1527,8 @@ def _dist_lines(d: dict, card: str) -> list:
         f"distributed PGO: edge-sharded, {DIST_RANKS} gloo ranks: {circles}; block-halo at K "
         f"= {K} ({n_loops} loops, {lm} LM x {cg} CG): B {blk['B']}, H {blk['H']}, "
         f"{float(g['block_ms']):.0f} ms against {refs['block_ms']:.0f} ms single-process, "
-        f"energy {blk['E']:.6g} / {blk['E_ref']:.6g}, centre error {blk['err']:.5g} / "
+        f"energy {blk['E']!r} (solved again: {blk['E_again']!r}, bitwise equal) / "
+        f"{blk['E_ref']:.6g}, centre error {blk['err']:.5g} / "
         f"{blk['err_ref']:.5g} | {card}",
         f"distributed dry run (graft_entry.dryrun_multichip, {DIST_RANKS} ranks, 2x2 mesh): "
         f"energies BA {c['dryrun'][0]:.6g}, PGO {c['dryrun'][1]:.4g}, block PGO "
@@ -1139,7 +1555,7 @@ def main() -> int:
 
     # ---- 1. device
     import ldso_tpu_torch  # noqa: F401  (sets the float32 precision flags)
-    from ldso_tpu_torch.kernels import pallas_pyramid
+    from ldso_tpu_torch.kernels import cuda_build, pallas_pyramid, track_level
     from ldso_tpu_torch.kernels.pyramid import build_pyramid_torch
 
     card = _card_line()
@@ -1166,7 +1582,7 @@ def main() -> int:
     n_workers = min(8, os.cpu_count() or 1)
     with concurrent.futures.ProcessPoolExecutor(
             max_workers=n_workers, mp_context=multiprocessing.get_context("spawn")) as renders, \
-            concurrent.futures.ThreadPoolExecutor(max_workers=5) as pool:
+            concurrent.futures.ThreadPoolExecutor(max_workers=7) as pool:
         # the dataset first: its frames cost the most (rendered larger,
         # warped through the lens, PNG-encoded)
         futures = [
@@ -1176,14 +1592,19 @@ def main() -> int:
             pool.submit(_render_bench, LOOP_FRAMES, LOOP_W, LOOP_H, seed=5,
                         traj_kind="out_and_back", pool=renders)]
         t0 = time.perf_counter()
-        builds = [pool.submit(pallas_pyramid.build), pool.submit(native.available)]
-        lib, has_native = (b.result() for b in builds)
+        builds = [pool.submit(pallas_pyramid.build), pool.submit(track_level.build),
+                  pool.submit(cuda_build.ptxas_report, track_level.SOURCE),
+                  pool.submit(native.available)]
+        lib, lib_track, ptxas, has_native = (b.result() for b in builds)
         reason = ""
         if not has_native:
             lines = (native.unavailable_reason() or "no reason given").strip().splitlines()
             # the compiler's or linker's own complaint, else the last line
             reason = f" ({next((ln for ln in lines if 'error' in ln), lines[-1]).strip()})"
-        print(f"build: {os.path.relpath(lib, root)}; native image loader "
+        regs = "; ".join(ln.split("info    : ")[-1].strip() for ln in ptxas.splitlines()
+                         if "registers" in ln or "spill" in ln)
+        print(f"build: {os.path.relpath(lib, root)}, {os.path.relpath(lib_track, root)} "
+              f"(track_level: {regs}); native image loader "
               f"{'built' if has_native else 'NOT built'}{reason}; frames will be decoded by "
               f"'{datasets.active_decoder()}'; {time.perf_counter() - t0:.2f} s", flush=True)
         (tum_root, tum_gt), (ds, frames), (lds, lframes) = (f.result() for f in futures)
@@ -1252,31 +1673,122 @@ def main() -> int:
           f" | {card}", flush=True)
 
     # ---- 4. the main path, at the untouched default preset
+    from ldso_tpu_torch import frame_step, tracker
     from ldso_tpu_torch.config import preset
 
     sync = torch.cuda.synchronize
     t_phase = time.perf_counter()
     pallas_pyramid.reset_launches()
-    main = drive_bench(preset("default"), ds, frames, dev, sync=sync)
+    track_level.reset_launches()
+    probe = BenchProbe(TRACK_CAPTURE, TRACK_PROFILE)
+    main = drive_bench(preset("default"), ds, frames, dev, sync=sync, probe=probe)
     launches_main = pallas_pyramid.LAUNCHES
+    track_main = track_level.LAUNCHES
     # one launch per frame: a bootstrap frame builds one pyramid too
     if launches_main != len(frames) or main["n_tracked"] == 0:
         raise RuntimeError(f"pyramid kernel launched {launches_main} times for "
                            f"{len(frames)} frames ({main['n_tracked']} tracked)")
+    _check_track_launches("phase 4", track_main, main["n_tracked"])
     print(f"main path: {len(frames)} frames ({main['n_init']} to initialize, "
           f"{main['n_tracked']} tracked, 0 lost), {main['n_kf']} KFs ({main['n_marg']} "
           f"marginalized), {main['n_corner_act']} corner-seeded activations, ATE "
           f"{main['ate']:.4f}% of extent (limit {ATE_MAX_PCT}%; JAX package "
           f"{REF_SYNC_ATE}% on the same frames, BENCH_r05.json), steady-state "
-          f"{main['fps']:.3f} frames/s over frames {N_WARM}..{len(frames) - 1} (host "
-          f"clock, synchronized per frame), pyramid launches {launches_main}, phase "
-          f"wall time {time.perf_counter() - t_phase:.1f} s | {card}", flush=True)
+          f"{main['fps']:.3f} frames/s over {main['n_rate']} frames of {N_WARM}.."
+          f"{len(frames) - 1} (the profiled {TRACK_PROFILE[0]}..{TRACK_PROFILE[-1]} left "
+          f"out; host clock, synchronized per frame), pyramid launches {launches_main}, "
+          f"tracker launches {track_main} ({LEVELS} per tracked frame), phase wall time "
+          f"{time.perf_counter() - t_phase:.1f} s | {card}", flush=True)
+    prof = probe.summary()
+    split = ", ".join(f"{k} {prof[k]['host_ms']:.2f} ms host / {prof[k]['device_ms']:.3f} ms "
+                      f"device ({prof[k]['calls']} calls)" for k in BenchProbe.LABELS)
+    busy = "not measured" if prof["busy"] is None else f"{100 * prof['busy']:.2f}%"
+    print(f"main path profile (torch.profiler over bench frames {TRACK_PROFILE[0]}.."
+          f"{TRACK_PROFILE[-1]}, per frame): {prof['wall_ms']:.2f} ms wall (host clock, "
+          f"under the profiler), {prof['launches_per_frame']:.1f} device kernels / copies, "
+          f"device busy {busy}; {split} | {card}", flush=True)
+
+    # ---- 4b. the tracker kernel on the main path's real inputs
+    t_phase = time.perf_counter()
+    missing = [i for i in TRACK_CAPTURE if "track" not in probe.inputs.get(i, {})]
+    if missing:
+        raise RuntimeError(f"phase 4 kept no tracking inputs on frames {missing}")
+    mid = TRACK_CAPTURE[len(TRACK_CAPTURE) // 2]
+    track_recs = {}
+    for i in TRACK_CAPTURE:
+        recs = check_track_level(f"bench frame {i}", probe.inputs[i]["track"],
+                                 time_it=(i == mid))
+        track_recs[i] = recs
+        print(f"kernel track_level vs plain [bench frame {i}, the system's ref, pyramid and "
+              f"{recs[0]['lanes']} hypotheses]: " + "; ".join(
+                  f"L{r['level']} {r['w']}x{r['h']} {r['lanes']}x{r['points']}: max|dT| "
+                  f"{r['e_T']:.3g}, max|dab| {r['e_ab']:.3g}, rmse rel {r['e_rm']:.3g}, "
+                  f"counts {r['e_n']}, iterations {_iters_text(r)}" + "".join(
+                      f", lane {k} parted at a tie at iteration {t['cap']} ({t['moved']} moved,"
+                      f" energy change {t['rho']:.2g}; |dab| {t['d_ab']:.3g} from there)"
+                      for k, t in r["ties"].items()) for r in recs)
+              + f" (bounds: T {TRACK_T_ATOL}, ab {TRACK_AB_ATOL}, or {TRACK_TIE_AB_ATOL} on "
+                f"a lane parted at a tie (energy change <= {TRACK_TIE_RTOL}; at most "
+                f"{TRACK_MAX_TIES} a frame), rmse rtol {TRACK_RMSE_RTOL} lane by lane, counts "
+                f"{TRACK_COUNT_FRAC:.0%} of N_l)",
+              flush=True)
+    recs = track_recs[mid]
+    track_ms = sum(r["ms"] for r in recs)
+    track_plain_ms = sum(r["plain_ms"] for r in recs)
+    track_bound_ms = sum(r["bound_ms"] for r in recs)
+    track_bound_by = max(("bytes", "operations"), key=lambda by: sum(
+        r["bound_ms"] for r in recs if r["bound_by"] == by))
+    track_err = max(r["e_T"] for rs in track_recs.values() for r in rs)
+    track_ties = sum(len(r["ties"]) for rs in track_recs.values() for r in rs)
+    print(f"kernel track_level timing [bench frame {mid}, per level: device ms (launches "
+          f"queued behind a spin kernel) / plain ms (host clock, synchronized) / bound ms]: "
+          + "; ".join(f"L{r['level']} {r['ms']:.4f} / {r['plain_ms']:.2f} / "
+                      f"{r['bound_ms']:.6f} by {r['bound_by']} ({r['bytes']} B, "
+                      f"{r['flops']} flops)" for r in recs)
+          + f"; a frame's five levels {track_ms:.4f} ms device, plain {track_plain_ms:.2f} ms,"
+            f" bound {track_bound_ms:.6f} ms (mostly by {track_bound_by}) | {card}", flush=True)
+    args = probe.inputs[mid]["track"]
+    n_k, dev_ms_k = _device_events(lambda: tracker.track_frame(*args))
+    with plain_tracker():
+        n_p, dev_ms_p = _device_events(lambda: tracker.track_frame(*args))
+        res_p = tracker.track_frame(*args)
+    if n_k > TRACK_MAX_EVENTS:
+        raise RuntimeError(f"one track_frame call took {n_k} device kernels, more than "
+                           f"{TRACK_MAX_EVENTS}")
+    # no host sync anywhere in a track_frame call on the card
+    sync()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        res_k = tracker.track_frame(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    d_T = float((res_k.T - res_p.T).abs().max())
+    d_rmse = float(((res_k.rmse - res_p.rmse).abs() / res_p.rmse.abs().clamp(min=1e-6)).max())
+    if not (d_T <= TRACK_T_ATOL and d_rmse <= TRACK_RMSE_RTOL):
+        raise RuntimeError(f"track_frame with the kernel parts from the plain version on "
+                           f"frame {mid}: max|dT| {d_T:.3g}, rmse rel {d_rmse:.3g}")
+    step = probe.inputs[mid]["step"]
+    n_step, ms_step = _device_events(lambda: frame_step.fused_step(*step))
+    with plain_tracker():
+        n_step_p, ms_step_p = _device_events(lambda: frame_step.fused_step(*step))
+    print(f"track_frame on bench frame {mid}: {n_k} device kernels / copies, {dev_ms_k:.3f} ms "
+          f"device (kernel path; at most {TRACK_MAX_EVENTS}); plain version {n_p}, "
+          f"{dev_ms_p:.3f} ms; ran under torch.cuda.set_sync_debug_mode('error') without a "
+          f"host sync; against the plain version max|dT| {d_T:.3g}, rmse rel {d_rmse:.3g}. "
+          f"One whole fused_step (non-keyframe work of a tracked frame): {n_step} device "
+          f"kernels / copies, {ms_step:.3f} ms device; with the plain tracker {n_step_p}, "
+          f"{ms_step_p:.3f} ms (torch.profiler); phase wall time "
+          f"{time.perf_counter() - t_phase:.1f} s | {card}", flush=True)
 
     # ---- 5. loop closure on the loop sequence
     t_phase = time.perf_counter()
     pallas_pyramid.reset_launches()
+    track_level.reset_launches()
     loop = drive_loop_pair(preset("default"), lds, lframes, dev, sync=sync)
     launches_loop = pallas_pyramid.LAUNCHES
+    track_loop = track_level.LAUNCHES
+    _check_track_launches("phase 5", track_loop,
+                          loop["off"]["n_tracked"] + loop["on"]["n_tracked"])
     # two drives of one launch per frame, and the relocalization's pyramid
     if launches_loop != 2 * len(lframes) + 1:
         raise RuntimeError(f"pyramid kernel launched {launches_loop} times in the loop "
@@ -1293,7 +1805,7 @@ def main() -> int:
           f"synchronized per frame); relocalization on frame {loop['reloc']['frame']} "
           f"-> kf {loop['reloc']['kf_id']} with {loop['reloc']['n_inliers']} inliers, "
           f"center offset {loop['reloc']['d_est']:.4f} (bound {loop['reloc']['bound']:.4f}); "
-          f"pyramid launches {launches_loop}; phase wall time "
+          f"pyramid launches {launches_loop}, tracker launches {track_loop}; phase wall time "
           f"{time.perf_counter() - t_phase:.1f} s | {card}", flush=True)
 
     # ---- 6. async modes, free-running
@@ -1307,8 +1819,11 @@ def main() -> int:
             ("(c) async + AsyncLoopClosing, loop sequence", dict(loop=True),
              (lds, lframes), on["ate"])):
         pallas_pyramid.reset_launches()
+        track_level.reset_launches()
         r = drive_async(preset("default"), *seq, dev, sync, ate_sync, **kw)
         r["launches"] = pallas_pyramid.LAUNCHES
+        r["track_launches"] = track_level.LAUNCHES
+        _check_track_launches(name, r["track_launches"], r["n_tracked"])
         if r["launches"] != r["launches_expected"]:
             raise RuntimeError(f"{name}: pyramid kernel launched {r['launches']} times, "
                                f"expected {r['launches_expected']}")
@@ -1316,6 +1831,7 @@ def main() -> int:
     if drives[f"(b) async + pipeline_depth 8 + batch {BATCH}"]["n_tail"] < 1:
         raise RuntimeError("the batched drive left no tail of fewer than a batch")
     launches_async = sum(r["launches"] for r in drives.values())
+    track_async = sum(r["track_launches"] for r in drives.values())
     print(f"async modes (free-running, host clock over the whole drive with its drain; "
           f"latency = add_frame to pose available) | {card}", flush=True)
     print(f"  sync, bench sequence (phase 4): {len(frames)} frames, "
@@ -1338,14 +1854,21 @@ def main() -> int:
     out_dir = os.path.join(tmp.name, "out")
     os.makedirs(out_dir)
     pallas_pyramid.reset_launches()
+    track_level.reset_launches()
     cli_run = drive_cli(tum_root, tum_gt, out_dir)
     launches_cli = pallas_pyramid.LAUNCHES
+    track_cli = track_level.LAUNCHES
+    # a metrics line per tracked frame
+    _check_track_launches("phase 7 (CLI)", track_cli, cli_run["n_metrics"])
     if launches_cli != cli_run["n_fed"]:
         raise RuntimeError(f"pyramid kernel launched {launches_cli} times for "
                            f"{cli_run['n_fed']} frames fed by the CLI")
     pallas_pyramid.reset_launches()
+    track_level.reset_launches()
     resume = drive_resume(preset("default"), tum_root, out_dir, dev, sync)
     launches_resume = pallas_pyramid.LAUNCHES
+    track_resume = track_level.LAUNCHES
+    _check_track_launches("phase 7 (resume)", track_resume, resume["n_tracked"])
     if launches_resume != resume["launches_expected"]:
         raise RuntimeError(f"pyramid kernel launched {launches_resume} times in the resume "
                            f"drives, expected {resume['launches_expected']}")
@@ -1360,7 +1883,7 @@ def main() -> int:
           f"({cli_run['n_bootstrap']} bootstrap frames write none), PLY {cli_run['n_pts']} "
           f"points, {cs['fps']} frames/s (the CLI's own clock, all frames; phase 4 "
           f"{main['fps_all']:.3f}), whole call {cli_run['wall']:.1f} s, pyramid launches "
-          f"{launches_cli} | {card}", flush=True)
+          f"{launches_cli}, tracker launches {track_cli} | {card}", flush=True)
     print(f"  reader, per frame: decode {rt['decode_ms']:.3f} ms (host, zip read + PNG, no "
           f"prefetch), response + vignette + remap {rt['device_ms']:.4f} ms (device, CUDA "
           f"events), the two copies {rt['copy_ms']:.3f} ms (host clock), whole get_image "
@@ -1370,7 +1893,8 @@ def main() -> int:
           f"{resume['t_save']:.3f} s, load onto the card {resume['t_load']:.3f} s; frames "
           f"{N_RESUME}..{resume['n_frames'] - 1} again from it: max |position gap| to the "
           f"uninterrupted run {resume['gap']:.3g} (bound {RESUME_ATOL}), KFs "
-          f"{resume['n_kf'][0]} / {resume['n_kf'][1]}, pyramid launches {launches_resume}; "
+          f"{resume['n_kf'][0]} / {resume['n_kf'][1]}, pyramid launches {launches_resume}, "
+          f"tracker launches {track_resume}; "
           f"phase wall time {time.perf_counter() - t_phase:.1f} s | {card}", flush=True)
 
     # ---- 8. the distributed solvers: ranks on the one card
@@ -1395,7 +1919,17 @@ def main() -> int:
         "plain_ms": ms_p, "bound_ms": bound1, "bound_ms_b8": bound8,
         "bound_ms_f32": bound_f32, "ms_f32_l1": ms_l1, "plain_ms_f32_l1": plain_l1,
         "bound_ms_f32_l1": bound_l1,
-        "bound_by": bound_by, "library_ms": None}]}), flush=True)
+        "bound_by": bound_by, "library_ms": None}, {
+        "name": "track_level", "route": "cuda",
+        "source": "ldso_tpu_torch/csrc/track_level.cu",
+        "replaces": "ldso_tpu/tracker.py:168",
+        "launches": track_main + track_loop + track_async + track_cli + track_resume,
+        "max_abs_err": track_err, "ms": track_ms, "ms_is": f"device, the {LEVELS} levels "
+        f"of bench frame {mid}", "plain_ms": track_plain_ms, "bound_ms": track_bound_ms,
+        "bound_by": track_bound_by, "library_ms": None,
+        "iterations": {f"L{r['level']}": r["n_iter"] for r in recs}, "ties": track_ties,
+        "track_frame_kernels": n_k, "track_frame_kernels_plain": n_p,
+        "fused_step_kernels": n_step, "fused_step_kernels_plain": n_step_p}]}), flush=True)
     print(f"card: {_card_line()}", flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,5 @@
-"""Row scatter that drops out-of-range indices.
+"""Row scatters: one that drops out-of-range indices, and a sum into
+segments in a fixed order.
 
 The reference pads slot vectors with the capacity index and relies on
 ``x.at[idx].set(v, mode="drop")`` to discard those writes. Torch
@@ -6,6 +7,12 @@ indexing would raise (CPU) or assert (CUDA) on them, so the scatter goes
 into a buffer one row longer, every out-of-range index is redirected to
 that spare row, and the spare row is sliced off. No host sync, no
 data-dependent shapes.
+
+``SegmentSum`` replaces ``zeros(n).index_add(0, idx, rows)`` where the
+result must repeat bit for bit: on the card ``index_add`` adds with
+atomics in no fixed order, so a float32 pose graph solved twice gave two
+energies. The rows are sorted by index once per graph (stable), and
+``torch.segment_reduce`` sums each segment in that order.
 """
 
 from __future__ import annotations
@@ -24,3 +31,19 @@ def scatter_drop(dst: torch.Tensor, idx: torch.Tensor, val) -> torch.Tensor:
         val = val.to(dst.dtype)
     buf[idx] = val
     return buf[:n]
+
+
+class SegmentSum:
+    """``zeros(n, ...).index_add(0, idx, rows)`` summed in a fixed order:
+    the order of ``idx`` itself within each target row. Built once per
+    index vector; each call sorts the rows and sums the segments."""
+
+    def __init__(self, idx: torch.Tensor, n: int):
+        idx = idx.long()
+        self.order = torch.argsort(idx, stable=True)
+        bounds = torch.searchsorted(idx[self.order],
+                                    torch.arange(n + 1, dtype=idx.dtype, device=idx.device))
+        self.lengths = torch.diff(bounds)
+
+    def __call__(self, rows: torch.Tensor) -> torch.Tensor:
+        return torch.segment_reduce(rows[self.order], "sum", lengths=self.lengths, axis=0)

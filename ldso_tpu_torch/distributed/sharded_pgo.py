@@ -30,6 +30,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ldso_tpu_torch.core.scatter import SegmentSum
 from ldso_tpu_torch.distributed.mesh import Mesh
 from ldso_tpu_torch.loop.posegraph import (PGOResult, _cg, _damping, _edge_system,
                                            _huber_energy, _lm_update, edge_residual)
@@ -67,9 +68,10 @@ def _pgo_shard(S_init, ei, ej, S_meas, w_edge, fixed, lam0: float, lm_iters: int
     eye = torch.eye(7, dtype=dt, device=dev)
     zero = torch.zeros((), dtype=dt, device=dev)
 
+    seg = SegmentSum(torch.cat([ei, ej]), K)
+
     def scatter(a_i, a_j):
-        out = torch.zeros((K,) + a_i.shape[1:], dtype=dt, device=dev)
-        return out.index_add(0, ei, a_i).index_add(0, ej, a_j)
+        return seg(torch.cat([a_i, a_j]))
 
     def energy(S):
         r = edge_residual(S[ei], S[ej], S_meas_inv)
@@ -234,11 +236,13 @@ def _block_pgo_shard(S_blk, fixed_blk, ei, ej, S_meas, w_edge, halo_out, halo_ma
         rest = y_comb.shape[1:]
         recv = mesh.all_to_all(y_comb[B:].reshape((n, H) + rest))
         contrib = torch.sum(recv, dim=0) * mask_f.reshape((H,) + (1,) * len(rest))
-        return y_comb[:B].index_add(0, halo_out, contrib)
+        return y_comb[:B] + seg_halo(contrib)
+
+    seg_halo = SegmentSum(halo_out, B)
+    seg = SegmentSum(torch.cat([ei, ej]), B + n * H)
 
     def scatter(a_i, a_j):
-        out = torch.zeros((B + n * H,) + a_i.shape[1:], dtype=dt, device=dev)
-        return out.index_add(0, ei, a_i).index_add(0, ej, a_j)
+        return seg(torch.cat([a_i, a_j]))
 
     def energy(S_comb):
         r = edge_residual(S_comb[ei], S_comb[ej], S_meas_inv)

@@ -8,9 +8,8 @@ a 64x32 tile of level 0 with a recomputed halo, pools the higher levels
 in shared memory, and writes the interleaved (I, dx, dy) stacks and the
 squared gradients as 16-byte stores (see the note at the top of the
 source). It is compiled with ``nvcc`` for ``sm_90a`` into a shared
-library with a plain C interface at first use, into
-``.build/ldso_tpu_torch/`` at the root of the checkout, and bound with
-``ctypes``. Nothing is compiled or loaded at import.
+library with a plain C interface at first use (``kernels/cuda_build.py``)
+and bound with ``ctypes``. Nothing is compiled or loaded at import.
 
 ``LAUNCHES`` counts kernel launches (one per call, whatever the batch);
 it is incremented only where the kernel is launched.
@@ -20,21 +19,14 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
 import threading
 from typing import List, Tuple
 
 import torch
 
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC = os.path.join(_PKG_DIR, "csrc", "pyramid.cu")
-BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), ".build", "ldso_tpu_torch")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+from ldso_tpu_torch.kernels import cuda_build
 
+SOURCE = cuda_build.csrc(__file__, "pyramid.cu")
 LAUNCHES = 0
 _LAUNCHES_LOCK = threading.Lock()      # tracking and mapping threads both count
 MAX_LEVELS = 6                        # kMaxLevels of the source
@@ -46,35 +38,14 @@ def reset_launches() -> None:
         LAUNCHES = 0
 
 
-def _nvcc() -> str:
-    for cand in (shutil.which("nvcc"),
-                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                              "bin", "nvcc")):
-        if cand and os.path.isfile(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the pyramid kernel needs the CUDA toolkit")
-
-
 def build() -> str:
-    """Compile csrc/pyramid.cu (if not already built from the same source)
-    and return the library path. The file name carries a hash of the
-    source and flags, so an edited source is never served stale."""
-    with open(_SRC, "rb") as f:
-        src = f.read()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = os.path.join(BUILD_DIR, f"libldso_pyramid_{tag}.so")
-    if os.path.isfile(lib):
-        return lib
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{lib}.{os.getpid()}.tmp"
-    subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, _SRC], check=True)
-    os.replace(tmp, lib)
-    return lib
+    """Compile csrc/pyramid.cu if need be; the library path."""
+    return cuda_build.build(SOURCE)
 
 
 @functools.lru_cache(maxsize=1)
 def _lib() -> ctypes.CDLL:
-    lib = ctypes.CDLL(build())
+    lib = cuda_build.load(SOURCE)
     p, i = ctypes.c_void_p, ctypes.c_int
     for fn in (lib.ldso_pyramid_u8, lib.ldso_pyramid_f32):
         # in, B, H, W, L, out3[L], gsq[L], stream

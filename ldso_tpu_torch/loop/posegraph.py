@@ -5,8 +5,11 @@ tensors — Sim3 states [K, 4, 4], an edge list (i, j, S_meas) with static
 capacity, and a fixed mask. Each Levenberg iteration evaluates the
 batched edge residuals e = log(S_meas⁻¹ · S_i · S_j⁻¹), per-edge 7×7
 Jacobians by forward-mode AD, and a block-Jacobi-preconditioned
-conjugate-gradient solve whose matvec is two gathers + two ``index_add``
-scatters over the edge list (the [7K, 7K] Hessian is never formed).
+conjugate-gradient solve whose matvec is two gathers and a scatter-add
+over the edge list (the [7K, 7K] Hessian is never formed). The
+scatter-add is ``core/scatter.SegmentSum``, a sum in a fixed order, so a
+solve repeats bit for bit on the card (``index_add`` adds with atomics in
+no fixed order there).
 
 Keyframes inside the current odometry window (plus the first KF, the
 gauge) are held fixed, as in the reference.
@@ -23,6 +26,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ldso_tpu_torch.core.scatter import SegmentSum
 from ldso_tpu_torch.math import lie
 
 
@@ -126,9 +130,10 @@ def optimize_pose_graph(
     def energy(S):
         return _huber_energy(edge_residual(S[ei], S[ej], S_meas_inv), w_edge, huber)
 
+    seg = SegmentSum(torch.cat([ei, ej]), K)
+
     def scatter(a_i, a_j):
-        out = torch.zeros((K,) + a_i.shape[1:], dtype=dt, device=dev)
-        return out.index_add(0, ei, a_i).index_add(0, ej, a_j)
+        return seg(torch.cat([a_i, a_j]))
 
     S = S_init
     lam = torch.as_tensor(lam0, dtype=dt, device=dev)

@@ -51,6 +51,20 @@ accelerator link:
     tasks and its rule for dropping queued non-keyframe tasks date from
     before its fused step; nothing produces such tasks and they are not
     carried over.
+  * The reference lets the tracking thread run on against the old
+    reference while a keyframe is built, up to a staleness bound in scene
+    units (``tracker.max_stale_delta``). Here, once a keyframe's trigger
+    is decided, one more dispatch (a frame, or a batch) goes out against
+    the old reference; the next waits for the new one (``_bound_ref_lag``). Both threads run Python under one
+    interpreter lock, so a build beside a free-running tracker took ~4x
+    its time alone (~400 against ~90 ms on an H100, ``PERF.md``) and
+    the reference went 5-11 frames stale; frames tracked 13 frames from
+    their reference failed, and keyframes were built from them. The
+    staleness wait of ``_process_tracked`` stays beside this rule: with
+    ``pipeline_depth`` a trigger is decided only when its frame's readback
+    lands, up to that many frames after its dispatch, and the frames
+    dispatched meanwhile went out against the old reference before this
+    rule could hold them (``kf_stale_waits`` counts that wait).
   * After an exception the mapping thread takes no further task until the
     exception has been raised on the caller's thread (the next
     ``add_frame`` / ``finish_mapping``), so the first cause is the one
@@ -313,6 +327,7 @@ class FullSystem:
         # already in flight, and the distinct want-windows among them
         self.kf_suppressed = 0
         self.kf_shed_events = 0
+        self.kf_stale_waits = 0       # tracking waited on the staleness bound
         # motion axis for stale votes: ref version -> (frame id of the
         # keyframe that version tracks against, its position on the axis)
         self._kf_base: dict = {0: (-1, 0.0)}
@@ -335,6 +350,7 @@ class FullSystem:
         self._map_exc: Optional[BaseException] = None
         self._kf_inflight = 0         # KFs queued or being built by mapping
         self._kf_want_streak = 0      # consecutive suppressed KF wants
+        self._dispatched_past_trigger = False   # since the last KF trigger
         self._map_running = True
         self._map_thread: Optional[threading.Thread] = None
         if async_mapping:
@@ -530,6 +546,7 @@ class FullSystem:
                 if st.get("status") == "lost":
                     break
             return st
+        self._bound_ref_lag()
         snap = self._snapshot()
         self._reexpress_carries(snap)
         imgs = torch.from_numpy(np.stack([m[3] for m in meta])).to(self.device)
@@ -546,7 +563,23 @@ class FullSystem:
         st = self._process_due(max(1, self.pipeline_depth // self.batch_size))
         return st or dict(status="pending", frame_id=meta[-1][0])
 
+    def _bound_ref_lag(self):
+        """Async modes: once a keyframe's trigger has been decided, one more
+        dispatch goes out against the old reference; the next waits for the
+        new one (a departure, see the module docstring). The wait ends early
+        on a mapping exception and gives up after 1.2 s, as the staleness
+        wait of ``_process_tracked`` does."""
+        if not self._async:
+            return
+        if self._kf_inflight > 0 and self._dispatched_past_trigger:
+            with self._map_cv:
+                self._map_cv.wait_for(
+                    lambda: self._kf_inflight == 0 or self._map_exc is not None,
+                    timeout=1.2)
+        self._dispatched_past_trigger = True
+
     def _track_single(self, fid, ts, exposure, img) -> dict:
+        self._bound_ref_lag()
         snap = self._snapshot()
         self._reexpress_carries(snap)
         # the last relative affine seeds this track only if it was measured
@@ -736,6 +769,7 @@ class FullSystem:
             too_stale = eff_delta > cfg.tracker.max_stale_delta \
                 or (max_sup > 0 and self._kf_want_streak >= max_sup)
             if too_stale:
+                self.kf_stale_waits += 1
                 with self._map_cv:
                     self._map_cv.wait_for(
                         lambda: self._kf_inflight < max_inflight
@@ -751,6 +785,7 @@ class FullSystem:
             self._record_trigger(fid, delta, ref_version)
             self._kf_want_streak = 0
             if self._async:
+                self._dispatched_past_trigger = False
                 with self._map_cv:    # the mapping thread decrements under it
                     self._kf_inflight += 1
 

@@ -7,14 +7,17 @@ set, with the residual cutoff (``coarse_cutoff_th``) and Huber weights.
 All motion hypotheses run as one batch through the two coarsest levels;
 the winner refines through the finer levels. The reference vmaps a
 ``lax.while_loop`` over the hypotheses: each lane stops on its own
-``done`` flag and is frozen afterwards while the others continue. Here
-the batch dimension is written out, every update is masked with the
-per-lane ``active`` flag, and the loop runs until no lane is active or
-the iteration budget is spent — so the same hypothesis wins.
+``done`` flag and is frozen afterwards while the others continue.
 
-``_level_system`` (residuals + 8x8 normal equations for one level) is a
-torch composition; it is the first candidate for a hand kernel once the
-card's numbers show it binding.
+``track_level`` dispatches on the device of its tensors. On the card one
+level's whole loop for every lane is ONE launch of the CUDA kernel
+``csrc/track_level.cu`` (``kernels/track_level.py``), and ``track_frame``
+runs with no host sync: five launches, the winner picked on the device.
+A CPU tensor takes ``track_level_torch``, the plain version: the batch
+dimension written out, every update masked with the per-lane ``active``
+flag, and a host loop that runs until no lane is active or the iteration
+budget is spent, so the same hypothesis wins. There is no fallback
+between the two.
 """
 
 from __future__ import annotations
@@ -23,7 +26,6 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from ldso_tpu_torch.cameras import level_intrinsics
 from ldso_tpu_torch.kernels.interp import bilinear_packed, in_bounds, pack_corners
 from ldso_tpu_torch.math import lie
 
@@ -129,7 +131,27 @@ def track_level(img3, uv, idepth, color, valid, T0, ab0, intr_l,
                 w: int, h: int, iters: int, cutoff: float, huber_th: float,
                 lam0: float = 0.01, lam_success: float = 0.5,
                 lam_fail: float = 4.0, step_eps: float = 1e-6):
-    """LM at one pyramid level for K lanes (T0 [K,4,4], ab0 [K,2]).
+    """LM at one pyramid level for K lanes (T0 [K,4,4], ab0 [K,2]):
+    ``track_level_torch`` for CPU tensors, the CUDA kernel (one launch)
+    for CUDA tensors. Returns (T, ab, rmse, n_ok, n_in, n_sat), per lane."""
+    args = (img3, uv, idepth, color, valid, T0, ab0.to(T0.dtype), intr_l)
+    if img3.device.type == "cpu":
+        return track_level_torch(*args, w, h, iters, cutoff, huber_th, lam0,
+                                 lam_success, lam_fail, step_eps)
+    if img3.device.type == "cuda":
+        from ldso_tpu_torch.kernels.track_level import track_level_cuda
+
+        return track_level_cuda(*(a.contiguous() for a in args), w, h, iters, cutoff,
+                                huber_th, lam0, lam_success, lam_fail, step_eps)[:6]
+    raise ValueError(f"no tracker level for device {img3.device}")
+
+
+def track_level_torch(img3, uv, idepth, color, valid, T0, ab0, intr_l,
+                      w: int, h: int, iters: int, cutoff: float, huber_th: float,
+                      lam0: float = 0.01, lam_success: float = 0.5,
+                      lam_fail: float = 4.0, step_eps: float = 1e-6):
+    """LM at one pyramid level for K lanes (T0 [K,4,4], ab0 [K,2]), the
+    plain torch version of the kernel.
 
     One system evaluation per iteration: the accepted state's system is
     carried, a rejected step reuses it with a larger λ. A lane is done on
@@ -187,12 +209,13 @@ def track_frame(pyr_new, ref: TrackerRef, T_inits, ab_init, intr, cfg,
     tcfg = cfg.tracker
     iters = list(tcfg.max_iterations) + [50] * levels
     K = T_inits.shape[0]
+    intr_levels = _level_intrinsics_all(intr, levels)
 
     def run(l, T, ab, n_iter):
         h, w = pyr_new[l].shape[0], pyr_new[l].shape[1]
         return track_level(
             pyr_new[l], ref.uv[l], ref.idepth[l], ref.color[l], ref.valid[l],
-            T, ab, level_intrinsics(intr, l), w, h, n_iter,
+            T, ab, intr_levels[l], w, h, n_iter,
             float(tcfg.coarse_cutoff_th * (2.0 ** l)), float(tcfg.huber_th),
             lam0=float(tcfg.lambda_initial),
             lam_success=float(tcfg.lambda_success),
@@ -203,13 +226,13 @@ def track_frame(pyr_new, ref: TrackerRef, T_inits, ab_init, intr, cfg,
     rmses = None
     for l in range(levels - 1, max(levels - 3, 0), -1):
         T_cand, ab_cand, rmses, _, _, _ = run(l, T_cand, ab_cand, min(int(iters[l]), 12))
-    best = torch.argmin(torch.where(torch.isfinite(rmses), rmses,
-                                    torch.full_like(rmses, float("inf"))))
-    T, ab = T_cand[best][None], ab_cand[best][None]
+    inf = float("inf")
+    best = torch.argmin(torch.nan_to_num(rmses, nan=inf, posinf=inf, neginf=inf))[None]
+    # the winner is picked on the device: nothing is read back
+    T, ab = T_cand.index_select(0, best), ab_cand.index_select(0, best)
 
     dev = T_inits.device
     rmse_per_level = [torch.zeros((), dtype=torch.float32, device=dev)] * levels
-    n_in = n_sat = torch.zeros((), dtype=torch.int64, device=dev)
     for l in range(max(levels - 3, 0), -1, -1):
         T, ab, rmse, _, n_in, n_sat = run(l, T, ab, int(iters[l]))
         rmse_per_level[l] = rmse[0]
@@ -223,29 +246,32 @@ def track_frame(pyr_new, ref: TrackerRef, T_inits, ab_init, intr, cfg,
                        frac_saturated=frac_sat, frac_oob=frac_oob, flow=flow)
 
 
+def _level_intrinsics_all(intr, levels: int):
+    """[levels, 4]: ``cameras.level_intrinsics(intr, l)`` for every level
+    at once, in a few launches and with no copy from the host; the scales
+    2^-l are products of halves, so exact."""
+    s = torch.full((levels,), 0.5, dtype=intr.dtype, device=intr.device).cumprod(0) * 2.0
+    half = intr.new_zeros(4)
+    half[2:] = 0.5                  # fx·s, fy·s, (cx + 0.5)·s − 0.5, (cy + 0.5)·s − 0.5
+    return (intr + half) * s[:, None] - half
+
+
 def _flow_indicators(ref: TrackerRef, T, intr):
     """RMS pixel displacement under (t-only, full, R-only) motion — the
-    keyframe-decision inputs."""
+    keyframe-decision inputs. The three motions are projected as one
+    batch: X_t = xh + t·idepth, X_full = R·xh + t·idepth, X_r = R·xh."""
     uv, idep, valid = ref.uv[0], ref.idepth[0], ref.valid[0]
-    fx, fy, cx, cy = intr[0], intr[1], intr[2], intr[3]
-    xh = torch.stack([(uv[..., 0] - cx) / fx, (uv[..., 1] - cy) / fy,
-                      torch.ones_like(uv[..., 0])], dim=-1)
-
-    def proj(R, t):
-        X = xh @ R.T + t[None, :] * idep[:, None]
-        z = torch.clamp(X[..., 2], min=1e-6)
-        return torch.stack([fx * X[..., 0] / z + cx, fy * X[..., 1] / z + cy], dim=-1)
-
+    f, c = intr[0:2], intr[2:4]
+    xh = torch.cat([(uv - c) / f, torch.ones_like(uv[..., :1])], dim=-1)   # [N, 3]
     R, t = T[:3, :3], T[:3, 3]
-    eye = torch.eye(3, dtype=T.dtype, device=T.device)
+    Rx = xh @ R.T
+    tz = t[None, :] * idep[:, None]
+    X = torch.stack([xh + tz, Rx + tz, Rx])                                # [3, N, 3]
+    z = torch.clamp(X[..., 2:3], min=1e-6)
+    d = (f * X[..., :2]) / z + c - uv
     wv = valid.to(uv.dtype)
     n = torch.clamp(torch.sum(wv), min=1.0)
-
-    def rms(d):
-        return torch.sqrt(torch.sum(wv * torch.sum(d * d, dim=-1)) / n)
-
-    return torch.stack([rms(proj(eye, t) - uv), rms(proj(R, t) - uv),
-                        rms(proj(R, torch.zeros_like(t)) - uv)])
+    return torch.sqrt(torch.sum(wv * torch.sum(d * d, dim=-1), dim=-1) / n)
 
 
 def motion_hypotheses(T_const_vel, num: int = 27) -> torch.Tensor:

@@ -25,7 +25,6 @@ from __future__ import annotations
 import argparse
 import importlib.util
 import os
-import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -53,17 +52,13 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
+    from ldso_tpu_torch.kernels import cuda_build
     from ldso_tpu_torch.kernels import pallas_pyramid as new
     from ldso_tpu_torch.kernels.pyramid import build_pyramid_torch
 
     card = cs._card_line()
     if args.ptxas:
-        out = subprocess.run(
-            [new._nvcc(), *new.NVCC_FLAGS, "-Xptxas", "-v", "-o", os.devnull, new._SRC],
-            capture_output=True, text=True)
-        print(out.stdout + out.stderr, flush=True)
-        if out.returncode:
-            raise SystemExit("nvcc failed")
+        print(cuda_build.ptxas_report(new.SOURCE), flush=True)
     new.build()
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(0)

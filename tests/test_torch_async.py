@@ -373,6 +373,78 @@ def test_backlog_holds_keyframes_only_and_drops_none():
         _shutdown(sys_a)
 
 
+def test_dispatch_waits_for_the_new_ref_after_a_trigger():
+    """Async modes: once a keyframe's trigger is decided, one more dispatch
+    goes out against the old reference; the next waits until the mapping
+    thread has swapped in the new one (a departure from the reference,
+    which runs on until a staleness bound)."""
+    s = _idle_system(async_mapping=True)
+    try:
+        s.first_coarse_rmse = 1.0
+        gate, started = threading.Event(), threading.Event()
+
+        def gated(task):
+            started.set()
+            assert gate.wait(JOIN_S)
+            with s._map_cv:              # what a finished build releases
+                s._kf_inflight -= 1
+                s._map_cv.notify_all()
+
+        s._map_frame = gated
+        assert _vote(s, 0, 1.5)["need_kf"]
+        assert started.wait(JOIN_S) and s._kf_inflight == 1
+        s._bound_ref_lag()                   # goes out at once
+        released = []
+        waiter = threading.Thread(target=lambda: (s._bound_ref_lag(),
+                                                  released.append(s._kf_inflight)))
+        waiter.start()
+        time.sleep(0.3)
+        assert waiter.is_alive() and not released    # held while the build runs
+        gate.set()
+        waiter.join(JOIN_S)
+        assert released == [0]                       # went out after the swap
+        s._bound_ref_lag()                           # nothing in flight: no wait
+    finally:
+        gate.set()
+        _shutdown(s)
+
+
+def test_staleness_wait_holds_a_vote_past_the_bound():
+    """A wanted keyframe while one is in flight is shed at once below
+    tracker.max_stale_delta, and waits for the build above it: what bounds
+    the frames that a pipelined mode dispatched against the old reference
+    before the trigger was decided, which the dispatch rule cannot hold."""
+    s = _idle_system(async_mapping=True)
+    try:
+        s.first_coarse_rmse = 1.0
+        gate, started = threading.Event(), threading.Event()
+
+        def gated(task):
+            started.set()
+            assert gate.wait(JOIN_S)
+            with s._map_cv:              # what a finished build releases
+                s._kf_inflight -= 1
+                s._map_cv.notify_all()
+
+        s._map_frame = gated
+        bound = s.cfg.tracker.max_stale_delta
+        assert _vote(s, 0, 1.5)["need_kf"]
+        assert started.wait(JOIN_S) and s._kf_inflight == 1
+        assert not _vote(s, 1, 0.5 * (1.0 + bound))["need_kf"]    # shed, no wait
+        assert (s.kf_suppressed, s.kf_stale_waits) == (1, 0)
+        votes = []
+        waiter = threading.Thread(target=lambda: votes.append(_vote(s, 2, bound + 0.3)))
+        waiter.start()
+        time.sleep(0.3)
+        assert waiter.is_alive() and not votes and s.kf_stale_waits == 1
+        gate.set()
+        waiter.join(JOIN_S)
+        assert votes[0]["need_kf"] and s.kf_suppressed == 1   # built after the wait
+    finally:
+        gate.set()
+        _shutdown(s)
+
+
 def test_mapping_exception_surfaces_on_next_call():
     sys_a = _idle_system(async_mapping=True)
     done = threading.Event()
