@@ -4,7 +4,10 @@ Each kernel source is compiled with ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, at first use, into
 ``.build/ldso_tpu_torch/`` at the root of the checkout. The library's file
 name carries a hash of the source and the flags, so an edited source is
-never served stale. Nothing is compiled or loaded at import.
+never served stale. A build may add preprocessor defines (``defines``,
+e.g. ``("TRACK_LEVEL_PHASES",)`` for an instrumented second library); they
+are part of the flags, so of the hash. Nothing is compiled or loaded at
+import.
 """
 
 from __future__ import annotations
@@ -39,27 +42,32 @@ def csrc(module_file: str, name: str) -> str:
                         "csrc", name)
 
 
-def build(src: str) -> str:
+def _flags(defines: tuple) -> list:
+    return [*NVCC_FLAGS, *(f"-D{d}" for d in defines)]
+
+
+def build(src: str, defines: tuple = ()) -> str:
     """Compile the source at ``src`` (if not already built from the same
     text and flags) into ``libldso_<stem>_<hash>.so`` and return its path."""
     with open(src, "rb") as f:
         text = f.read()
-    tag = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    flags = _flags(defines)
+    tag = hashlib.sha256(text + " ".join(flags).encode()).hexdigest()[:16]
     stem = os.path.splitext(os.path.basename(src))[0]
     lib = os.path.join(BUILD_DIR, f"libldso_{stem}_{tag}.so")
     if os.path.isfile(lib):
         return lib
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{lib}.{os.getpid()}.tmp"
-    subprocess.run([nvcc(), *NVCC_FLAGS, "-o", tmp, src], check=True)
+    subprocess.run([nvcc(), *flags, "-o", tmp, src], check=True)
     os.replace(tmp, lib)
     return lib
 
 
-def ptxas_report(src: str) -> str:
+def ptxas_report(src: str, defines: tuple = ()) -> str:
     """What ``ptxas -v`` says of the source at ``src``: registers, shared
     memory and spills of each kernel (no library is written)."""
-    out = subprocess.run([nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", os.devnull, src],
+    out = subprocess.run([nvcc(), *_flags(defines), "-Xptxas", "-v", "-o", os.devnull, src],
                          capture_output=True, text=True)
     if out.returncode:
         raise RuntimeError(f"nvcc failed on {src}:\n{out.stdout}{out.stderr}")
@@ -67,6 +75,7 @@ def ptxas_report(src: str) -> str:
 
 
 @functools.lru_cache(maxsize=None)
-def load(src: str) -> ctypes.CDLL:
-    """The library of the source at ``src``, built if need be, loaded once."""
-    return ctypes.CDLL(build(src))
+def load(src: str, defines: tuple = ()) -> ctypes.CDLL:
+    """The library of the source at ``src`` (with ``defines``), built if
+    need be, loaded once."""
+    return ctypes.CDLL(build(src, defines))

@@ -9,15 +9,16 @@ the winner refines through the finer levels. The reference vmaps a
 ``lax.while_loop`` over the hypotheses: each lane stops on its own
 ``done`` flag and is frozen afterwards while the others continue.
 
-``track_level`` dispatches on the device of its tensors. On the card one
-level's whole loop for every lane is ONE launch of the CUDA kernel
-``csrc/track_level.cu`` (``kernels/track_level.py``), and ``track_frame``
-runs with no host sync: five launches, the winner picked on the device.
-A CPU tensor takes ``track_level_torch``, the plain version: the batch
-dimension written out, every update masked with the per-lane ``active``
-flag, and a host loop that runs until no lane is active or the iteration
-budget is spent, so the same hypothesis wins. There is no fallback
-between the two.
+``track_level`` (one level) and ``track_frame``'s level chain
+(``_run_levels``) dispatch on the device of their tensors. On the card the
+CUDA kernel ``csrc/track_level.cu`` (``kernels/track_level.py``) runs a
+table of levels, every lane's whole loop, in ONE launch: ``track_frame``
+is two launches (the coarse levels for every lane; then the winner, picked
+on the device, through the fine levels) and no host sync. A CPU tensor
+takes ``track_level_torch``, the plain version: the batch dimension
+written out, every update masked with the per-lane ``active`` flag, and a
+host loop that runs until no lane is active or the iteration budget is
+spent, so the same hypothesis wins. There is no fallback between the two.
 """
 
 from __future__ import annotations
@@ -133,7 +134,9 @@ def track_level(img3, uv, idepth, color, valid, T0, ab0, intr_l,
                 lam_fail: float = 4.0, step_eps: float = 1e-6):
     """LM at one pyramid level for K lanes (T0 [K,4,4], ab0 [K,2]):
     ``track_level_torch`` for CPU tensors, the CUDA kernel (one launch)
-    for CUDA tensors. Returns (T, ab, rmse, n_ok, n_in, n_sat), per lane."""
+    for CUDA tensors. Returns (T, ab, rmse, n_ok, n_in, n_sat), per lane.
+    The one-level entry, for tests and scripts: ``track_frame`` runs its
+    levels through ``_run_levels``."""
     args = (img3, uv, idepth, color, valid, T0, ab0.to(T0.dtype), intr_l)
     if img3.device.type == "cpu":
         return track_level_torch(*args, w, h, iters, cutoff, huber_th, lam0,
@@ -201,49 +204,104 @@ def track_level_torch(img3, uv, idepth, color, valid, T0, ab0, intr_l,
     return T, ab, rmse, n_ok, n_in, n_sat
 
 
+class LevelPlan(NamedTuple):
+    """One level of a tracked frame's chain, as ``track_frame`` runs it."""
+
+    level: int
+    h: int
+    w: int
+    n: int                     # reference points at the level
+    cap: int                   # iteration cap
+    cutoff: float              # residual cutoff
+    intr_row: int              # row of ``_level_intrinsics_all``
+
+
+def level_plan(pyr_new, ref: TrackerRef, tcfg) -> tuple:
+    """(coarse, fine): the levels of a tracked frame in chain order. The two
+    coarsest run every hypothesis, at most 12 LM iterations; the finer ones
+    refine the winner, at the level's ``max_iterations``."""
+    levels = len(pyr_new)
+    iters = list(tcfg.max_iterations) + [50] * levels
+
+    def plan(l, cap):
+        return LevelPlan(l, int(pyr_new[l].shape[0]), int(pyr_new[l].shape[1]),
+                         int(ref.uv[l].shape[0]), cap,
+                         float(tcfg.coarse_cutoff_th * (2.0 ** l)), l)
+
+    return (tuple(plan(l, min(int(iters[l]), 12))
+                  for l in range(levels - 1, max(levels - 3, 0), -1)),
+            tuple(plan(l, int(iters[l])) for l in range(max(levels - 3, 0), -1, -1)))
+
+
 def track_frame(pyr_new, ref: TrackerRef, T_inits, ab_init, intr, cfg,
                 new_exposure: float = 1.0) -> TrackResult:
     """Full pyramidal track: batched hypotheses at the two coarsest levels
     (at most 12 LM iterations), the winner refined to level 0."""
-    levels = len(pyr_new)
-    tcfg = cfg.tracker
-    iters = list(tcfg.max_iterations) + [50] * levels
-    K = T_inits.shape[0]
-    intr_levels = _level_intrinsics_all(intr, levels)
+    plan = level_plan(pyr_new, ref, cfg.tracker)
+    intr_levels = _level_intrinsics_all(intr, len(pyr_new))
+    T, ab, rmse, n_in, n_sat = _run_levels(pyr_new, ref, T_inits, ab_init, intr_levels,
+                                           plan, cfg.tracker)
+    flow = _flow_indicators(ref, T, intr)
+    frac_sat = n_sat / torch.clamp(n_in, min=1)
+    frac_oob = 1.0 - n_in / torch.clamp(torch.sum(ref.valid[0]), min=1)
+    return TrackResult(T=T, ab=ab, rmse=rmse, frac_saturated=frac_sat,
+                       frac_oob=frac_oob, flow=flow)
 
-    def run(l, T, ab, n_iter):
-        h, w = pyr_new[l].shape[0], pyr_new[l].shape[1]
-        return track_level(
-            pyr_new[l], ref.uv[l], ref.idepth[l], ref.color[l], ref.valid[l],
-            T, ab, intr_levels[l], w, h, n_iter,
-            float(tcfg.coarse_cutoff_th * (2.0 ** l)), float(tcfg.huber_th),
-            lam0=float(tcfg.lambda_initial),
-            lam_success=float(tcfg.lambda_success),
-            lam_fail=float(tcfg.lambda_fail),
-            step_eps=float(tcfg.step_eps))
+
+def _run_levels(pyr, ref, T_inits, ab_init, intr_levels, plan, tcfg):
+    """The level chain of ``track_frame``: the kernel's two launches for
+    CUDA tensors, the plain version for CPU tensors. Returns level 0's
+    (T [4, 4], ab [2]), the rmse of each level [L] (0 at the coarse
+    levels) and level 0's n_in, n_sat."""
+    if T_inits.device.type == "cuda":
+        return _run_levels_kernel(pyr, ref, T_inits, ab_init, intr_levels, plan, tcfg)
+    if T_inits.device.type == "cpu":
+        return _run_levels_plain(pyr, ref, T_inits, ab_init, intr_levels, plan, tcfg)
+    raise ValueError(f"no tracker for device {T_inits.device}")
+
+
+def _lm_args(tcfg) -> dict:
+    return dict(lam0=float(tcfg.lambda_initial), lam_success=float(tcfg.lambda_success),
+                lam_fail=float(tcfg.lambda_fail), step_eps=float(tcfg.step_eps))
+
+
+def _run_levels_kernel(pyr, ref, T_inits, ab_init, intr_levels, plan, tcfg):
+    from ldso_tpu_torch.kernels.track_level import track_levels_cuda
+
+    out = track_levels_cuda(pyr, ref, plan, intr_levels, T_inits.contiguous(),
+                            ab_init.reshape(2).to(T_inits.dtype).contiguous(),
+                            float(tcfg.huber_th), **_lm_args(tcfg))
+    n_fine = len(plan[1])
+    rmse = torch.cat([out.rmse[:n_fine, 0], out.rmse.new_zeros(len(pyr) - n_fine)])
+    return out.T[0, 0], out.ab[0, 0], rmse, out.n_in[0, 0], out.n_sat[0, 0]
+
+
+def _run_levels_plain(pyr, ref, T_inits, ab_init, intr_levels, plan, tcfg):
+    coarse, fine = plan
+    K = T_inits.shape[0]
+
+    def run(p, T, ab):
+        l = p.level
+        return track_level_torch(
+            pyr[l], ref.uv[l], ref.idepth[l], ref.color[l], ref.valid[l], T, ab.to(T.dtype),
+            intr_levels[p.intr_row], p.w, p.h, p.cap, p.cutoff, float(tcfg.huber_th),
+            **_lm_args(tcfg))
 
     T_cand, ab_cand = T_inits, ab_init.expand(K, 2)
     rmses = None
-    for l in range(levels - 1, max(levels - 3, 0), -1):
-        T_cand, ab_cand, rmses, _, _, _ = run(l, T_cand, ab_cand, min(int(iters[l]), 12))
+    for p in coarse:
+        T_cand, ab_cand, rmses, _, _, _ = run(p, T_cand, ab_cand)
     inf = float("inf")
     best = torch.argmin(torch.nan_to_num(rmses, nan=inf, posinf=inf, neginf=inf))[None]
     # the winner is picked on the device: nothing is read back
     T, ab = T_cand.index_select(0, best), ab_cand.index_select(0, best)
 
-    dev = T_inits.device
-    rmse_per_level = [torch.zeros((), dtype=torch.float32, device=dev)] * levels
-    for l in range(max(levels - 3, 0), -1, -1):
-        T, ab, rmse, _, n_in, n_sat = run(l, T, ab, int(iters[l]))
-        rmse_per_level[l] = rmse[0]
+    rmse_per_level = [torch.zeros((), dtype=torch.float32, device=T_inits.device)] * len(pyr)
+    for p in fine:
+        T, ab, rmse, _, n_in, n_sat = run(p, T, ab)
+        rmse_per_level[p.level] = rmse[0]
         n_in, n_sat = n_in[0], n_sat[0]
-    T, ab = T[0], ab[0]
-
-    flow = _flow_indicators(ref, T, intr)
-    frac_sat = n_sat / torch.clamp(n_in, min=1)
-    frac_oob = 1.0 - n_in / torch.clamp(torch.sum(ref.valid[0]), min=1)
-    return TrackResult(T=T, ab=ab, rmse=torch.stack(rmse_per_level),
-                       frac_saturated=frac_sat, frac_oob=frac_oob, flow=flow)
+    return T[0], ab[0], torch.stack(rmse_per_level), n_in, n_sat
 
 
 def _level_intrinsics_all(intr, levels: int):

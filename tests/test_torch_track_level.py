@@ -1,9 +1,12 @@
 """One pyramid level of the tracker's LM loop: the port's plain version
 (``tracker.track_level_torch``) against the JAX package's ``track_level``
 (vmapped over the lanes) at the five level shapes of ``preset("default")``
-at 640x480, the edge lanes, the dispatch of ``tracker.track_level``, and,
-on a card, the CUDA kernel (``kernels/track_level.py``) against the plain
-version.
+at 640x480, the edge lanes, the dispatch of ``tracker.track_level``, the
+level plan and the winner rule of the two-launch frame, the wrapper's
+refusals, and, on a card, the CUDA kernel (``kernels/track_level.py``)
+against the plain version at both launch shapes (many lanes, one CTA a
+lane; one lane, a cluster of 8), and its two-launch frame against one-level launches chained on their own
+outputs, bit for bit, and against a second run.
 
 The JAX package is imported inside the tests that use it, so that the
 card's machine, which has no JAX, runs the kernel's tests:
@@ -23,6 +26,7 @@ from ldso_tpu_torch.cameras import level_intrinsics
 from ldso_tpu_torch.config import preset
 from ldso_tpu_torch.io import synthetic
 from ldso_tpu_torch.kernels import pyramid as tpyr
+from ldso_tpu_torch.kernels import track_level as ktl
 from ldso_tpu_torch.math import lie
 
 CFG = preset("default")
@@ -220,14 +224,12 @@ def test_dispatch_takes_the_plain_version_for_cpu_tensors(scene):
 
 
 def test_cuda_wrapper_refuses_cpu_tensors(scene):
-    from ldso_tpu_torch.kernels.track_level import track_level_cuda
-
     level = LEVELS - 1
     T0, ab0, iters = _level_case(scene, level)
     args, wh = _args(scene, level, T0, ab0)
     with pytest.raises(ValueError):
-        track_level_cuda(*(torch.from_numpy(a) for a in args), wh["w"], wh["h"], iters,
-                         20.0, 9.0)
+        ktl.track_level_cuda(*(torch.from_numpy(a) for a in args), wh["w"], wh["h"], iters,
+                             20.0, 9.0)
 
 
 def test_wrapper_imports_without_nvcc():
@@ -261,8 +263,6 @@ def _cuda_or_skip():
 @pytest.mark.parametrize("level", [4, 3, 2, 1, 0])
 def test_cuda_kernel_matches_plain(scene, level):
     dev = _cuda_or_skip()
-    from ldso_tpu_torch.kernels import track_level as ktl
-
     T0, ab0, iters = _level_case(scene, level)
     args, wh = _args(scene, level, T0, ab0)
     d_args = [torch.as_tensor(a, device=dev) for a in args]
@@ -286,8 +286,6 @@ def test_cuda_kernel_matches_plain(scene, level):
 @pytest.mark.parametrize("case", ["behind", "no_valid", "first_accept"])
 def test_cuda_kernel_on_edge_lanes(scene, case):
     dev = _cuda_or_skip()
-    from ldso_tpu_torch.kernels import track_level as ktl
-
     args, wh, iters, level, kw = _edge_case(scene, case)
     d_args = [torch.as_tensor(a, device=dev) for a in args]
     out_k = ktl.track_level_cuda(*d_args, wh["w"], wh["h"], iters,
@@ -311,3 +309,234 @@ def test_cuda_kernel_on_edge_lanes(scene, case):
         assert bool(moved.any())
         assert bool((out_k[6][moved] == 1).all())
         assert torch.equal(out_k[0][moved], one[0][moved])
+
+
+# ---- the two-launch frame (kernels/track_level.track_levels_cuda)
+
+def _frame(scene, device="cpu", lanes=K):
+    """A tracked frame's tensors from the scene: the pyramid, the tracker
+    ref, ``lanes`` hypotheses, ab_init [2] and the level-0 intrinsics."""
+    as_t = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
+    refs = scene["ref"]
+    ref = ttr.TrackerRef(*(tuple(as_t(refs[l][i]) for l in range(LEVELS)) for i in range(4)),
+                         exposure=as_t(np.float32(1.0)), aff_ab=as_t(np.zeros(2, np.float32)))
+    return ([as_t(p) for p in scene["pyr"]], ref, as_t(scene["hyps"][:lanes]),
+            as_t(np.asarray([0.01, -0.5], np.float32)), as_t(scene["intr"][0]))
+
+
+def test_level_plan_is_the_chain_of_chip_smoke(scene):
+    import chip_smoke as cs
+
+    pyr, ref, T_inits, ab_init, intr = _frame(scene, lanes=3)
+    coarse, fine = ttr.level_plan(pyr, ref, TC)
+    intr_levels = ttr._level_intrinsics_all(intr, LEVELS)
+    walked = list(cs.track_level_chain((pyr, ref, T_inits, ab_init, intr, CFG)))
+    assert [p.level for p in coarse + fine] == [l for l, _, _, _ in walked] == [4, 3, 2, 1, 0]
+    for p, (l, lv, kw, _) in zip(coarse + fine, walked):
+        assert (p.h, p.w, p.n) == (kw["h"], kw["w"], lv[1].shape[0])
+        assert p.cap == kw["iters"] and p.cutoff == kw["cutoff"]
+        assert torch.equal(intr_levels[p.intr_row], lv[7])
+    assert [p.cap for p in coarse] == [12, 12] and [p.cap for p in fine] == [50, 30, 16]
+
+
+def _pick_like_the_kernel(rm):
+    """The kernel's winner rule written out (csrc/track_level.cu
+    pick_winner): NaN and +-inf as +inf; lane l of a warp scans entries
+    l, l + 32, ... keeping the first smallest; a butterfly over the 32
+    lanes keeps the smaller value, at equal values the lower index."""
+    inf, none = float("inf"), 2 ** 31 - 1
+    vals = [inf if (x != x or abs(x) == inf) else x for x in rm]
+    v, idx = [inf] * 32, [none] * 32
+    for lane in range(32):
+        for q in range(lane, len(vals), 32):
+            if idx[lane] == none or vals[q] < v[lane]:
+                v[lane], idx[lane] = vals[q], q
+    off = 16
+    while off:
+        v2, i2 = list(v), list(idx)
+        for lane in range(32):
+            ov, oi = v[lane ^ off], idx[lane ^ off]
+            if ov < v[lane] or (ov == v[lane] and oi < idx[lane]):
+                v2[lane], i2[lane] = ov, oi
+        v, idx, off = v2, i2, off // 2
+    assert len(set(idx)) == 1
+    return idx[0]
+
+
+@pytest.mark.parametrize("case", ["random", "nan", "posinf", "neginf", "ties", "all_inf",
+                                  "all_nan", "many_lanes_tie", "one_lane"])
+def test_winner_rule_is_argmin_over_nan_to_num(case):
+    rng = np.random.default_rng(11)
+    n = 40 if case == "many_lanes_tie" else 1 if case == "one_lane" else K
+    rm = rng.random(n).astype(np.float32) + 1.0
+    inf = np.float32(np.inf)
+    if case == "nan":
+        rm[[0, 5, 9]] = np.nan
+        rm[7] = 0.5
+    elif case == "posinf":
+        rm[0] = inf
+        rm[3] = 0.25
+    elif case == "neginf":                 # -inf counts as +inf, not as the smallest
+        rm[2] = -inf
+    elif case == "ties":
+        rm[[4, 11, 20]] = 0.125
+    elif case == "all_inf":
+        rm[:] = inf
+        rm[::2] = -inf
+    elif case == "all_nan":
+        rm[:] = np.nan
+    elif case == "many_lanes_tie":         # a tie across the strided scan (lanes 1 and 33)
+        rm[[33, 1, 39]] = 0.0625
+    t = torch.from_numpy(rm)
+    want = int(torch.argmin(torch.nan_to_num(t, nan=float("inf"), posinf=float("inf"),
+                                             neginf=float("inf"))))
+    assert _pick_like_the_kernel(rm.tolist()) == want
+
+
+def test_fused_entry_refuses_cpu_and_non_contiguous_tensors(scene):
+    pyr, ref, T_inits, ab_init, intr = _frame(scene)
+    plan = ttr.level_plan(pyr, ref, TC)
+    intr_levels = ttr._level_intrinsics_all(intr, LEVELS)
+    lm = dict(LM, huber_th=float(TC.huber_th))
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        ktl.track_levels_cuda(pyr, ref, plan, intr_levels, T_inits, ab_init, **lm)
+    with pytest.raises(ValueError, match="T0 is not contiguous"):
+        ktl.track_levels_cuda(pyr, ref, plan, intr_levels, T_inits.transpose(1, 2), ab_init,
+                              **lm)
+    wide = torch.cat([ref.uv[4], ref.uv[4]], 1)[:, :2]
+    bad = ref._replace(uv=ref.uv[:4] + (wide,))
+    with pytest.raises(ValueError, match="level 0 uv is not contiguous"):
+        ktl.track_levels_cuda(pyr, bad, plan, intr_levels, T_inits, ab_init, **lm)
+
+
+def test_launch_config_one_table_per_lane_count():
+    # many lanes (the coarse levels): one CTA a lane; one lane (the fine
+    # levels): a cluster of 8, the portable size
+    for lanes in (K, 2):
+        assert ktl.launch_config(lanes) == ktl.COARSE_LAUNCH == (1, 256)
+    assert ktl.launch_config(1) == ktl.FINE_LAUNCH == (8, 256)
+
+
+@pytest.mark.gpu
+def test_cuda_two_launches_equal_chained_one_level_calls_bitwise(scene):
+    dev = _cuda_or_skip()
+    d_frame = _frame(scene, device=dev)
+    pyr, ref, T_inits, ab_init, intr = d_frame
+    plan = ttr.level_plan(pyr, ref, TC)
+    intr_levels = ttr._level_intrinsics_all(intr, LEVELS)
+    before = ktl.LAUNCHES
+    out = ktl.track_levels_cuda(pyr, ref, plan, intr_levels, T_inits, ab_init,
+                                float(TC.huber_th), **LM)
+    assert ktl.LAUNCHES == before + 2
+    import chip_smoke as cs
+
+    outs, best = cs.kernel_level_chain((*d_frame, CFG))
+    assert int(out.best[0]) == best
+    for p in plan[0] + plan[1]:
+        lanes = K if p in plan[0] else 1
+        for name, a, b in zip(ktl.LevelsOut._fields, out[:8], outs[p.level]):
+            assert torch.equal(a[p.level, :lanes], b), (p.level, name)
+
+
+@pytest.mark.gpu
+def test_cuda_two_launches_repeat_bitwise_and_track_frame_reads_them(scene):
+    dev = _cuda_or_skip()
+    pyr, ref, T_inits, ab_init, intr = _frame(scene, device=dev)
+    plan = ttr.level_plan(pyr, ref, TC)
+    intr_levels = ttr._level_intrinsics_all(intr, LEVELS)
+    import chip_smoke as cs
+
+    runs = [ktl.track_levels_cuda(pyr, ref, plan, intr_levels, T_inits, ab_init,
+                                  float(TC.huber_th), **LM) for _ in range(2)]
+    for (field, l, a), (_, _, b) in zip(*(cs.written_levels(r, plan) for r in runs)):
+        assert torch.equal(a, b), (field, l)
+    before = ktl.LAUNCHES
+    res = ttr.track_frame(pyr, ref, T_inits, ab_init, intr, CFG)
+    assert ktl.LAUNCHES == before + 2
+    assert torch.equal(res.T, runs[0].T[0, 0]) and torch.equal(res.ab, runs[0].ab[0, 0])
+    assert torch.equal(res.rmse[:3], runs[0].rmse[:3, 0])
+    assert bool((res.rmse[3:] == 0).all())
+    # the whole frame against the plain chain on the card
+    plain = ttr._run_levels_plain(pyr, ref, T_inits, ab_init, intr_levels, plan, TC)
+    np.testing.assert_allclose(res.T.cpu(), plain[0].cpu(), rtol=0, atol=T_ATOL)
+    np.testing.assert_allclose(res.rmse.cpu(), plain[2].cpu(), rtol=RMSE_RTOL, atol=1e-6)
+
+
+def _one_lane_at_a_time(fn, d_args):
+    """``fn`` on each lane of d_args (T0, ab0 at 5, 6) alone, the outputs
+    stacked: one-lane launches take the fine levels' cluster."""
+    outs = [fn([a[k:k + 1] if i in (5, 6) else a for i, a in enumerate(d_args)])
+            for k in range(d_args[5].shape[0])]
+    return [torch.cat(xs) for xs in zip(*outs)]
+
+
+def _assert_close_but_ties(lv, kw, out_k, out_p):
+    """``_assert_close`` of the kernel's and the plain version's results,
+    but with ``chip_smoke.check_track_level``'s rule for ties: a lane whose
+    ab differs by more than AB_ATOL must be one whose two runs part at an
+    LM accept decision the float32 sums cannot resolve
+    (``chip_smoke._tie_parting``), and keeps ab within
+    ``chip_smoke.TRACK_TIE_AB_ATOL``; at most ``TRACK_MAX_TIES`` such lanes."""
+    import chip_smoke as cs
+
+    d_ab = (out_k[1] - out_p[1]).abs().amax(1)
+    tied = torch.nonzero(d_ab > AB_ATOL).flatten().tolist()
+    assert len(tied) <= cs.TRACK_MAX_TIES
+    for k in tied:
+        assert cs._tie_parting(lv, kw, k) is not None, k
+        assert float(d_ab[k]) <= cs.TRACK_TIE_AB_ATOL, k
+    ab_k = out_k[1].clone()
+    ab_k[tied] = out_p[1][tied]              # held to the tie bound above
+    _assert_close([out_k[0].cpu(), ab_k.cpu()] + [x.cpu() for x in out_k[2:6]],
+                  [x.cpu().numpy() for x in out_p], lv[1].shape[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("level,lanes", [(l, n) for l in (4, 3, 2, 1, 0) for n in ("many", "one")])
+def test_cuda_kernel_matches_plain_at_every_cluster_size(scene, level, lanes):
+    # each level at both launch shapes: many lanes (one CTA a lane) and one
+    # lane (a cluster of 8)
+    dev = _cuda_or_skip()
+    T0, ab0, iters = _level_case(scene, level)
+    if lanes == "one":
+        T0, ab0 = T0[:1], ab0[:1]
+    elif T0.shape[0] == 1:                 # the winner and two small rotations of it
+        xi = torch.zeros(3, 6)
+        xi[1, 3], xi[2, 4] = 2e-3, -2e-3
+        T0 = (lie.se3_exp(xi) @ torch.from_numpy(T0)).numpy()
+        ab0 = np.repeat(ab0, 3, axis=0)
+    args, wh = _args(scene, level, T0, ab0)
+    d_args = [torch.as_tensor(a, device=dev) for a in args]
+    cut = float(TC.coarse_cutoff_th * 2 ** level)
+    out_k = ktl.track_level_cuda(*d_args, wh["w"], wh["h"], iters, cut, float(TC.huber_th),
+                                 **LM)
+    out_p = _plain(args, wh, iters, level, device=dev)
+    _assert_close_but_ties(d_args, dict(w=wh["w"], h=wh["h"], iters=iters, cutoff=cut,
+                                        huber_th=float(TC.huber_th), **LM), out_k, out_p)
+    again = ktl.track_level_cuda(*d_args, wh["w"], wh["h"], iters, cut, float(TC.huber_th),
+                                 **LM)
+    for a, b in zip(out_k, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["behind", "no_valid", "first_accept"])
+@pytest.mark.parametrize("lanes", ["together", "alone"])
+def test_cuda_kernel_on_edge_lanes_at_every_cluster_size(scene, case, lanes):
+    # the lanes in one launch (one CTA a lane), or each alone (a cluster of 8)
+    dev = _cuda_or_skip()
+    args, wh, iters, level, kw = _edge_case(scene, case)
+    d_args = [torch.as_tensor(a, device=dev) for a in args]
+
+    def run(a):
+        return ktl.track_level_cuda(*a, wh["w"], wh["h"], iters,
+                                    float(TC.coarse_cutoff_th * 2 ** level), float(TC.huber_th),
+                                    **dict(LM, **kw))
+
+    out_k = run(d_args) if lanes == "together" else _one_lane_at_a_time(run, d_args)
+    out_p = _plain(args, wh, iters, level, device=dev, **kw)
+    _assert_close([x.cpu() for x in out_k[:6]], [x.cpu().numpy() for x in out_p],
+                  len(args[1]))
+    if case in ("behind", "no_valid"):
+        for k in ([0] if case == "behind" else [0, 1]):
+            assert int(out_k[6][k]) == 9 and int(out_k[7][k]) == 0
