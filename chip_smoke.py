@@ -9,10 +9,12 @@ Phases, one result line each (any failure raises and exits non-zero):
   1. device: the card's name and power limit, torch/CUDA versions and the
      float32 precision flags;
   2. build: compile every kernel of the main path from ``ldso_tpu_torch/csrc``
-     (the pyramid and the tracker levels, each its own nvcc, started
-     together, with the tracker kernel's ``ptxas -v`` report beside them:
-     registers, shared memory, spills), and the tracker kernel again with
-     ``-DTRACK_LEVEL_PHASES`` (its clock64 phase stamps)
+     (the pyramid, the tracker levels, and the trace and activation kernels
+     of ``trace.cu`` (built with ``-fmad=false``), each source its own nvcc,
+     started together, with the tracker's and the trace source's ``ptxas -v``
+     reports beside them: registers, shared memory, spills of each kernel),
+     and the tracker kernel again with ``-DTRACK_LEVEL_PHASES`` (its clock64
+     phase stamps)
      and the native image loader ``ldso_tpu_torch/native/loader.cc``
      (host C++; if it cannot be built the reason is printed and the Python
      decoders serve phase 7); meanwhile a pool of worker processes, one
@@ -36,10 +38,15 @@ Phases, one result line each (any failure raises and exits non-zero):
      ground-truth trajectory (ATE <= 6% of extent) and for corner-seeded
      activations; the tracker kernel launched 2 times per tracked frame
      (the coarse levels of every hypothesis, then the winner's fine
-     levels), as in every later drive; frames 40..59 traced with
-     torch.profiler (device kernels per frame, the device's busy share, host
-     and device ms of the pyramid, the tracker, the trace and the keyframe
-     path), and the tracking inputs of frames 20, 60 and 100 kept;
+     levels), the trace kernel once per tracked frame and the activation
+     kernel once per keyframe built, as in every later drive; frames 40..59
+     traced with torch.profiler (device kernels per frame, the device's
+     busy share, host and device ms of the pyramid, the tracker, the trace
+     and the keyframe path, and of the keyframe path's stages per
+     keyframe: activation, BA, the finish with its marginalization, the
+     seeding and tracker-ref rebuild), the tracking and trace inputs of
+     frames 20, 60 and 100 kept, and the activation inputs of the first
+     two keyframes after frame 20;
   4b. the tracker kernel on those real inputs: at each of the five levels,
      as ``track_frame`` chains them, the kernel (a one-level launch)
      against ``track_level_torch`` (T, ab, the rmse of every lane, the
@@ -51,8 +58,21 @@ Phases, one result line each (any failure raises and exits non-zero):
      and the plain version's ms, the two launches' device ms, the clock64
      phase breakdown of each level (the instrumented library), the device
      kernels of one ``track_frame`` call of each version and of one whole
-     ``fused_step`` (torch.profiler); one ``track_frame`` under
-     ``torch.cuda.set_sync_debug_mode("error")`` (no host sync);
+     ``fused_step`` (torch.profiler; the kernel path under STEP_MAX_EVENTS,
+     beside the plain tracker's and the plain tracker and trace's); one
+     ``track_frame`` under ``torch.cuda.set_sync_debug_mode("error")`` (no
+     host sync);
+  4c. the trace and activation kernels on those real inputs: on frames 20,
+     60 and 100 the trace kernel against ``frame_step._trace_core_torch``
+     (``check_trace``: every bank field, best_uv and best_idepth of GOOD
+     rows, rows that part only at a tie of the plain run's own numbers,
+     at most TRACE_MAX_TIES a frame) and bit for bit against a second
+     launch; on the two keyframes the activation kernel against
+     ``trace.activate_candidates_torch`` (``check_activate``) and a second
+     launch; on frame 60 and the first keyframe each kernel's device ms
+     beside the bound this run's data needs and the plain version's ms, and
+     the device kernels of one ``activate_candidates_device`` call of each
+     version;
   5. loop closure: the loop sequence of the JAX package's
      ``bench.py::bench_loop_closure`` (``preset("default")``, 320x240, 240
      frames, seed 5, out_and_back, uint8) driven twice, loop closure off
@@ -75,7 +95,8 @@ Phases, one result line each (any failure raises and exits non-zero):
      max(1.5 x the sync ATE of the same sequence in this run, 6%), leave no
      worker thread alive, and launch the pyramid kernel exactly as often
      as expected (once per frame; in (b) once per bootstrap frame, per
-     full batch and per tail frame); (c) must close >= 1 loop and run the
+     full batch and per tail frame) and the tracker, trace and activation
+     kernels as phase 4 does; (c) must close >= 1 loop and run the
      pose graph. Frames/s (host clock, whole drive with its drain) and the
      submit-to-pose latency are printed beside the sync drive's;
   7. dataset path: 120 frames of the bench sequence written to disk in the
@@ -89,7 +110,8 @@ Phases, one result line each (any failure raises and exits non-zero):
      from the trajectory file, ATE against the renderer's ground truth <=
      6% of extent, one metrics line per tracked frame (frame ids
      consecutive from the end of the bootstrap to the last frame), a PLY
-     with > 0 points, one pyramid launch per frame fed;
+     with > 0 points, one pyramid launch per frame fed, the tracker, trace
+     and activation kernels as phase 4 does (in (b) too);
      (b) resume through the Python API: run A takes frames 0..119 with
      ``save_checkpoint`` after frame 59, run B is ``load_checkpoint`` on the
      card and frames 60..119; the positions of the two trajectories must
@@ -115,7 +137,8 @@ Phases, one result line each (any failure raises and exits non-zero):
      scatter-adds sum in a fixed order); ``graft_entry.dryrun_multichip``;
      replicated results bitwise equal on every rank. A rank that fails, or has not
      ended within ``DIST_TIMEOUT_S``, fails the phase.
-Then a JSON line of per-kernel results, the card line again, and as the
+Then a JSON line of per-kernel results (pyramid, track_level, trace,
+activate), the card line again, and as the
 last line ``{"ok": true, "device": {...}}``. There is no CPU path; the CPU
 tests (tests/test_torch_distributed.py) run phase 8's rank program at
 ``preset("tiny")``.
@@ -182,6 +205,12 @@ TRACK_CAPTURE = (20, 60, 100)     # bench frames whose tracking inputs phase 4 k
 TRACK_PROFILE = tuple(range(40, 60))   # bench frames phase 4 traces with torch.profiler
 TRACK_MAX_EVENTS = 50             # device kernels one track_frame call may take (42-44 seen)
 TRACK_LAUNCHES = 2                # tracker kernel launches a tracked frame: coarse, then fine
+# a regression gate, not a target: device kernels and copies one fused_step
+# may take. ~440 on the card (900 and more with the plain trace); of these
+# the tracker takes 42-44, the trace one launch and its slot tables ~85, the
+# prediction (one se3_log, 27 se3_exp) ~270, which stand between this and
+# the 200 the port aims at (ROADMAP)
+STEP_MAX_EVENTS = 470
 # flops of one point evaluation in csrc/track_level.cu's evaluate: every
 # point xh 4, X 18, z test 2, projection 3 + 4, bounds 4, bilinear sample
 # 33, residual and Huber 9 (77); a point with omega > 0 also J 31 and the
@@ -192,6 +221,37 @@ TRACK_FLOPS_POINT, TRACK_FLOPS_OK = 77, 130
 # damping 27, LU of the 8x9 system 372, back substitution 64, negation 8,
 # the SE(3) exponential and T_new 260, accept / lambda / max|step| 20
 TRACK_FLOPS_STEP = 751
+# the trace and activation kernels against their plain versions (phase 4c),
+# on the _trace_core arguments of TRACK_CAPTURE's frames and the activation
+# arguments of the first ACT_KEEP keyframes after bench frame ACT_AFTER.
+# Both follow torch's rounding operator by operator, but the small matrix
+# products (cuBLAS) and torch's reductions fix their own orders: a bank
+# field within TRACE_ATOL + TRACE_RTOL |plain| (best_uv within TRACE_UV_ATOL
+# px on GOOD rows), an activation's idepth within ACT_IDEPTH_ATOL +
+# ACT_IDEPTH_RTOL |plain| and its sums (80 terms here in the JAX package's
+# order, there in one reduction) within ACT_SUM_ATOL + ACT_SUM_RTOL |plain|.
+# A row whose plain run decides within TRACE_TIE_RTOL of a threshold (or
+# samples within TRACE_TIE_PX of the in-bounds border) is a tie, which two
+# correct float32 versions may decide apart (trace_ties); more than
+# TRACE_MAX_TIES (ACT_MAX_TIES) such rows parting in one frame (keyframe)
+# fail the check
+ACT_AFTER, ACT_KEEP = 20, 2
+TRACE_RTOL, TRACE_ATOL, TRACE_UV_ATOL = 1e-5, 1e-6, 1e-3
+ACT_IDEPTH_RTOL, ACT_IDEPTH_ATOL, ACT_SUM_RTOL, ACT_SUM_ATOL = 1e-4, 1e-6, 1e-3, 1e-2
+TRACE_TIE_RTOL, TRACE_TIE_PX, TRACE_MAX_TIES, ACT_MAX_TIES = 1e-5, 1e-3, 4, 4
+# flops of csrc/trace.cu's trace_bank, as one thread does them: a valid
+# row's ray, segment, predictions, interval and status 191; a sample's
+# position 5 and per sweep point its bounds test 6; per sweep point of an
+# in-bounds sample the bilinear intensity 15, the difference, its square
+# and the sum 3; a GN step 8 x 45 (the (I, dx, dy) sample 37, residual,
+# gradient and products 8) + 25 (sums and step)
+TRACE_FLOPS_ROW, TRACE_FLOPS_SAMPLE, TRACE_FLOPS_BOUNDS = 191, 5, 6
+TRACE_FLOPS_SAMPLE_IN, TRACE_FLOPS_GN = 18, 385
+# flops of its activate_bank, per evaluation of a candidate row: a sample
+# of a valid target slot, its projection and bounds test 32; an in-bounds
+# sample's (I, dx, dy) 37, residual, Jd, Huber weight and the four terms
+# 27; a slot's four 8-point sums and their addition 32
+ACT_FLOPS_SAMPLE, ACT_FLOPS_IN, ACT_FLOPS_SLOT = 32, 64, 32
 
 
 def _card_line() -> str:
@@ -199,6 +259,40 @@ def _card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def _kernel_name(symbol: str) -> str:
+    """The function's own name in an Itanium-mangled symbol (``_Z17f...``, or
+    ``_ZN<scope...>1fE...`` for a function in a namespace)."""
+    import re
+
+    nested, names, i = symbol.startswith("_ZN"), [], 3 if symbol.startswith("_ZN") else 2
+    while i < len(symbol):
+        m = re.match(r"\d+", symbol[i:])
+        if not m:
+            break
+        n, i = int(m.group()), i + len(m.group())
+        names.append(symbol[i:i + n])
+        i += n
+        if not nested:
+            break
+    return names[-1] if names else symbol
+
+
+def ptxas_kernels(report: str) -> str:
+    """Each kernel's registers, shared memory and spills from a ``ptxas
+    -v`` report, as "name: ..."."""
+    import re
+
+    out, name = [], "?"
+    for ln in report.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(_Z\w+)", ln)
+        if m:
+            name = _kernel_name(m.group(1))
+            continue
+        if "registers" in ln or "spill" in ln:
+            out.append(f"{name}: {ln.split('info    : ')[-1].strip()}")
+    return "; ".join(out)
 
 
 def _time_ms(fn, reps: int = 20, inner: int = 20) -> float:
@@ -405,19 +499,27 @@ class BenchProbe:
     """Phase 4's instruments, switched on around chosen frames of the drive.
 
     On the frames of ``capture`` it keeps (cloned) the arguments of
-    ``tracker.track_frame`` and ``frame_step.fused_step``: the system's real
-    tracker ref, pyramid, hypotheses and state. Over the frames of
-    ``profile`` it runs ``torch.profiler`` with the pyramid build, the
+    ``tracker.track_frame``, ``frame_step.fused_step`` and
+    ``frame_step._trace_core``: the system's real tracker ref, pyramid,
+    hypotheses, bank and state. From frame ``act_after`` + 1 on it keeps
+    the arguments (and keywords) of the first ``act_keep`` calls of
+    ``trace.activate_candidates_device`` (one a keyframe). Over the frames
+    of ``profile`` it runs ``torch.profiler`` with the pyramid build, the
     tracker, the trace and the keyframe path each under a
-    ``record_function`` label, and keeps the host-clock wall time."""
+    ``record_function`` label, and inside the keyframe path the
+    activation, the BA, the finish (marginalization) and the seeding and
+    tracker-ref rebuild; it keeps the host-clock wall time."""
 
-    LABELS = ("pyramid", "tracker", "trace", "keyframe")
+    LABELS = ("pyramid", "tracker", "trace", "keyframe", "kf_activate", "run_ba", "finish_kf",
+              "seed_ref")
+    KF_STAGES = LABELS[4:]
 
-    def __init__(self, capture, profile):
+    def __init__(self, capture, profile, act_after: int = ACT_AFTER, act_keep: int = ACT_KEEP):
         self.capture, self.profile = tuple(capture), tuple(profile)
-        self.inputs = {}
+        self.act_after, self.act_keep = act_after, act_keep
+        self.inputs, self.activations = {}, []
         self.prof, self.wall_s, self._t0 = None, 0.0, 0.0
-        self._undo = []
+        self._undo, self._act_undo = [], None
 
     def _patch(self, obj, name, wrap):
         orig = getattr(obj, name)
@@ -429,12 +531,31 @@ class BenchProbe:
             obj, name, orig = self._undo.pop()
             setattr(obj, name, orig)
 
+    def _keep_activations(self, i: int) -> None:
+        from ldso_tpu_torch import trace as trace_mod
+
+        if self._act_undo is not None and len(self.activations) >= self.act_keep:
+            trace_mod.activate_candidates_device = self._act_undo
+            self._act_undo = None
+        elif (self._act_undo is None and i > self.act_after
+              and len(self.activations) < self.act_keep):
+            orig = self._act_undo = trace_mod.activate_candidates_device
+
+            def kept(*args, **kw):
+                if len(self.activations) < self.act_keep:
+                    self.activations.append((_clone(args), dict(kw)))
+                return orig(*args, **kw)
+
+            trace_mod.activate_candidates_device = kept
+
     def before(self, i: int) -> None:
         import torch
 
-        from ldso_tpu_torch import frame_step, tracker
+        from ldso_tpu_torch import frame_step, lifecycle, tracker
+        from ldso_tpu_torch.ba import solve
         from ldso_tpu_torch.system import FullSystem
 
+        self._keep_activations(i)
         if i in self.capture:
             rec = self.inputs.setdefault(i, {})
 
@@ -448,6 +569,7 @@ class BenchProbe:
 
             self._patch(tracker, "track_frame", keep("track"))
             self._patch(frame_step, "fused_step", keep("step"))
+            self._patch(frame_step, "_trace_core", keep("trace"))
         if self.profile and i == self.profile[0]:
             def label(name):
                 def wrap(fn):
@@ -460,7 +582,13 @@ class BenchProbe:
             for obj, attr, name in ((frame_step, "build_pyramid", "pyramid"),
                                     (tracker, "track_frame", "tracker"),
                                     (frame_step, "_trace_core", "trace"),
-                                    (FullSystem, "_make_keyframe", "keyframe")):
+                                    (FullSystem, "_make_keyframe", "keyframe"),
+                                    (lifecycle, "kf_activate", "kf_activate"),
+                                    (solve, "run_ba", "run_ba"),
+                                    (FullSystem, "_finish_kf", "finish_kf"),
+                                    (FullSystem, "_dispatch_seed", "seed_ref"),
+                                    (FullSystem, "_seed_new_kf", "seed_ref"),
+                                    (FullSystem, "_update_tracker_ref", "seed_ref")):
                 self._patch(obj, attr, label(name))
             act = torch.profiler.ProfilerActivity
             self.prof = torch.profiler.profile(activities=[act.CPU, act.CUDA])
@@ -468,6 +596,7 @@ class BenchProbe:
             self._t0 = time.perf_counter()
 
     def after(self, i: int) -> None:
+        self._keep_activations(i)
         if self.profile and i == self.profile[-1]:
             self.wall_s = time.perf_counter() - self._t0
             self.prof.__exit__(None, None, None)
@@ -477,7 +606,7 @@ class BenchProbe:
 
     def summary(self) -> dict:
         """Launches per frame, the device's busy share of the window, and
-        host and device ms per frame of each label."""
+        host and device ms per frame of each label (and per call)."""
         from torch.autograd import DeviceType
 
         events = self.prof.events()
@@ -489,8 +618,11 @@ class BenchProbe:
                    busy=busy_us / (1e6 * self.wall_s) if dev else None)
         for name in self.LABELS:
             ev = [e for e in events if e.name == name and e.device_type == DeviceType.CPU]
-            out[name] = dict(calls=len(ev), host_ms=sum(e.cpu_time_total for e in ev) / 1e3 / n,
-                             device_ms=sum(e.device_time_total for e in ev) / 1e3 / n)
+            host = sum(e.cpu_time_total for e in ev) / 1e3
+            device = sum(e.device_time_total for e in ev) / 1e3
+            out[name] = dict(calls=len(ev), host_ms=host / n, device_ms=device / n,
+                             host_ms_call=host / max(len(ev), 1),
+                             device_ms_call=device / max(len(ev), 1))
         return out
 
 
@@ -897,6 +1029,394 @@ def _check_track_launches(phase: str, launched: int, tracked: int) -> None:
     if launched != TRACK_LAUNCHES * tracked:
         raise RuntimeError(f"{phase}: tracker kernel launched {launched} times for "
                            f"{tracked} tracked frames, expected {TRACK_LAUNCHES * tracked}")
+
+
+def _check_trace_launches(phase: str, traced: int, activated: int, tracked: int,
+                          keyframes: int) -> None:
+    """One trace launch for each tracked frame (every tracked frame is
+    traced: trace_every 1) and one activation launch for each keyframe
+    built (``FullSystem._make_keyframe``, counted by ``count_keyframes``)."""
+    if traced != tracked or activated != keyframes:
+        raise RuntimeError(f"{phase}: trace kernel launched {traced} times for {tracked} "
+                           f"tracked frames, activation kernel {activated} times for "
+                           f"{keyframes} keyframes built")
+
+
+@contextlib.contextmanager
+def count_keyframes():
+    """Within the block, count the keyframes ``FullSystem`` builds
+    (``_make_keyframe`` calls, on whichever thread); yields a one-item list
+    holding the count."""
+    import threading
+
+    from ldso_tpu_torch.system import FullSystem
+
+    made, lock = [0], threading.Lock()
+    build = FullSystem._make_keyframe
+
+    def counted(self, *args, **kw):
+        with lock:
+            made[0] += 1
+        return build(self, *args, **kw)
+
+    FullSystem._make_keyframe = counted
+    try:
+        yield made
+    finally:
+        FullSystem._make_keyframe = build
+
+
+@contextlib.contextmanager
+def plain_trace():
+    """Within the block, ``frame_step._trace_core`` and
+    ``trace.activate_candidates_device`` run their plain versions also on
+    the card: the yardstick of the kernels, never the port's path."""
+    from ldso_tpu_torch import frame_step
+    from ldso_tpu_torch import trace as trace_mod
+
+    kernels = frame_step._trace_core, trace_mod.activate_candidates_device
+    frame_step._trace_core = frame_step._trace_core_torch
+    trace_mod.activate_candidates_device = trace_mod.activate_candidates_torch
+    try:
+        yield
+    finally:
+        frame_step._trace_core, trace_mod.activate_candidates_device = kernels
+
+
+def trace_details(args) -> tuple:
+    """``frame_step._trace_core_torch`` on ``args`` (its arguments), with
+    what ``trace.trace_points`` decides on kept (its ``details``), plus the
+    runner-up SSD anywhere but the best sample (a near-tie with it can move
+    the argmin), the options and the frame's size: (new bank, details)."""
+    import torch
+
+    from ldso_tpu_torch import frame_step
+
+    rep = {}
+    plain = frame_step._trace_core_torch(*args, details=rep)
+    ssd, best_k = rep["ssd"], rep["best_k"]
+    kk = torch.arange(ssd.shape[1], device=ssd.device)[None, :]
+    rep["runner_up"] = torch.amin(torch.where(kk == best_k[:, None], float("inf"), ssd), dim=-1)
+    rep.update(kw=frame_step._trace_kw(args[-1]), h=args[0].shape[0], w=args[0].shape[1])
+    return plain, rep
+
+
+def _near(a, b, rtol: float):
+    """|a - b| <= rtol |b| (b a tensor or a number)."""
+    import torch
+
+    return (a - b).abs() <= rtol * (b.abs() if isinstance(b, torch.Tensor) else abs(b))
+
+
+def _near_border(uv, w: int, h: int):
+    """Per sample, whether a coordinate lies within TRACE_TIE_PX of the
+    in-bounds border at 2 px (``interp.in_bounds``): where rounding of the
+    position can flip the test."""
+    u, v = uv[..., 0], uv[..., 1]
+    return (((u - 2.0).abs() <= TRACE_TIE_PX) | ((u - (w - 3.0)).abs() <= TRACE_TIE_PX)
+            | ((v - 2.0).abs() <= TRACE_TIE_PX) | ((v - (h - 3.0)).abs() <= TRACE_TIE_PX))
+
+
+def trace_ties(rep: dict, valid):
+    """The valid rows whose trace the plain version's own numbers (``rep``,
+    ``trace_details``') put within reach of rounding: the runner-up SSD
+    within TRACE_TIE_RTOL of the best (the argmin), or a deciding quantity
+    within TRACE_TIE_RTOL of its threshold (quality against min_quality,
+    the best SSD against the energy gate, g_along against 1, the segment's
+    length against the slack, a GN step against gn_threshold, the two ends
+    of the new interval, its minimum against -0.1, |dir_u| against |dir_v|
+    for the axis), or a sweep sample within TRACE_TIE_PX of the border."""
+    kw, r = rep["kw"], TRACE_TIE_RTOL
+    tie = (_near(rep["runner_up"], rep["best_e"], r) | _near(rep["quality"], kw["min_quality"], r)
+           | _near(rep["best_e"], rep["gate"], r) | _near(rep["g_along"], 1.0, r)
+           | _near(rep["seg_len"], kw["slack_interval"], r)
+           | _near(rep["new_max"], rep["new_min"], r) | _near(rep["new_min"], -0.1, r)
+           | _near(rep["dir"][:, 0].abs(), rep["dir"][:, 1].abs(), r)
+           | _near_border(rep["samp"], rep["w"], rep["h"]).flatten(1).any(1))
+    for s in rep["raw_steps"]:
+        tie |= _near(s.abs(), kw["gn_threshold"], r)
+    return tie & valid
+
+
+def _bits_equal(a, b) -> bool:
+    """Equal bit for bit (float32 compared as its bits, so NaN too)."""
+    import torch
+
+    if a.dtype == torch.float32:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
+
+
+def _close(a, b, rtol: float, atol: float):
+    """|a - b| <= atol + rtol |b|, NaN equal to NaN, infinities equal."""
+    import torch
+
+    return ((a - b).abs() <= atol + rtol * b.abs()) | (a == b) | (torch.isnan(a) & torch.isnan(b))
+
+
+def trace_bound_ms(args, rep: dict) -> tuple:
+    """The least time the card could take for one trace of the bank as
+    this run's data needs it: the larger of its bytes over the memory rate
+    and its operations over the float32 rate. Bytes: each output field
+    written once (21 B a row); an invalid row reads its valid flag and the
+    20 B it copies through; a valid row reads what the trace uses (valid,
+    host_slot, uv, color, the interval and the strikes: 57 B; its quality
+    and status it overwrites unread); the slot tables; the distinct texels
+    of the valid rows' in-bounds sweep samples at 4 B (intensity) and, for
+    the rows whose status the refine can decide (not OOB, SKIPPED or over
+    the energy gate), of the refine's and g_along's samples at 12 B
+    (I, dx, dy). Operations (csrc/trace.cu, counted per row as one thread
+    does them): TRACE_FLOPS_ROW a valid row, TRACE_FLOPS_SAMPLE a sample
+    (TRACE_FLOPS_SAMPLE_IN more per sweep point of an in-bounds sample),
+    TRACE_FLOPS_GN a GN step of a row the refine can decide. ``rep`` is
+    ``trace_details``'. Returns (ms, bound_by, bytes, flops)."""
+    import torch
+
+    from ldso_tpu_torch import trace as tm
+    from ldso_tpu_torch.core.window import pattern
+
+    bank = args[1]
+    n, F = bank.uv.shape[0], args[3].shape[0]
+    w, h, kw = rep["w"], rep["h"], rep["kw"]
+    valid = bank.valid
+    # the rows whose status the refine and g_along can move
+    refined = valid & ((rep["status"] == tm.GOOD) | (rep["status"] == tm.BADCONDITION)
+                       | ((rep["status"] == tm.OUTLIER) & (rep["best_e"] <= rep["gate"])))
+
+    def corners(uv):
+        u0 = uv[..., 0].floor().long().clamp(0, w - 1)
+        v0 = uv[..., 1].floor().long().clamp(0, h - 1)
+        u1, v1 = (u0 + 1).clamp(max=w - 1), (v0 + 1).clamp(max=h - 1)
+        return torch.stack([v0 * w + u0, v0 * w + u1, v1 * w + u0, v1 * w + u1], -1)
+
+    inb = rep["inb"] & valid[:, None]
+    sweep = corners(rep["samp"][inb]).unique()
+    pat = pattern(bank.uv.device)
+    refine = torch.cat([corners(p[refined][:, None, :] + pat[None]).flatten()
+                        for p in rep["positions"][:-1]]
+                       + [corners(rep["positions"][-1][refined]).flatten()]).unique()
+    only_sweep = int(sweep.numel()) - int(torch.isin(sweep, refine).sum())
+    n_valid, n_in, n_ref = int(valid.sum()), int(inb.sum()), int(refined.sum())
+    n_bytes = (21 * n + 57 * n_valid + 21 * (n - n_valid) + F * 18 * 4 + 16
+               + 4 * kw["num_samples"] + 4 * only_sweep + 12 * int(refine.numel()))
+    s = rep["samp"].shape[2]
+    flops = (n_valid * TRACE_FLOPS_ROW + n_ref * kw["gn_iters"] * TRACE_FLOPS_GN
+             + n_valid * kw["num_samples"] * (TRACE_FLOPS_SAMPLE + TRACE_FLOPS_BOUNDS * s)
+             + n_in * TRACE_FLOPS_SAMPLE_IN * s)
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
+    return (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
+            n_bytes, flops)
+
+
+def check_trace(name: str, args, time_it: bool = False) -> dict:
+    """Hold the trace kernel against its plain version on one traced frame's
+    real inputs (``args`` of ``frame_step._trace_core``): the bank fields
+    ``_trace_core`` writes (valid, last_status and outlier_count equal;
+    idepth_min, idepth_max and quality within TRACE_ATOL + TRACE_RTOL |plain|,
+    NaN equal to NaN) on every row, and best_uv (TRACE_UV_ATOL px) and
+    best_idepth on the rows both call GOOD. A row that parts must be a tie
+    of ``trace_ties``; at most TRACE_MAX_TIES such rows. Two launches must
+    agree bit for bit. Returns a record; with ``time_it`` also the kernel's device ms, the plain
+    version's ms and the bound."""
+    import torch
+
+    from ldso_tpu_torch import frame_step
+    from ldso_tpu_torch import trace as tm
+    from ldso_tpu_torch.kernels import trace as ktr
+
+    img3, bank, T_eval, x, expo_all, T_new_cw, ab_abs, expo_new, intr, cfg = args
+    T_hn, ab = frame_step.trace_slot_tables(T_eval, x, expo_all, T_new_cw, ab_abs, expo_new)
+    kw = frame_step._trace_kw(cfg)
+
+    def launch(debug=True):
+        return ktr.trace_bank_cuda(img3, bank, T_hn, ab, intr, debug=debug, **kw)
+
+    out_k, again = launch(), launch()
+    for field, a, b in zip(ktr.TraceBankOut._fields, out_k, again):
+        if not _bits_equal(a, b):
+            raise RuntimeError(f"trace kernel on {name}: two launches differ in {field}")
+    plain, rep = trace_details(args)
+    torch.cuda.synchronize()
+    valid = bank.valid
+    tie = trace_ties(rep, valid)
+    good = (rep["status"] == tm.GOOD) & (out_k.status == tm.GOOD)
+    held = ((out_k.valid == plain.valid) & (out_k.last_status == plain.last_status)
+            & (out_k.outlier_count == plain.outlier_count)
+            & _close(out_k.idepth_min, plain.idepth_min, TRACE_RTOL, TRACE_ATOL)
+            & _close(out_k.idepth_max, plain.idepth_max, TRACE_RTOL, TRACE_ATOL)
+            & _close(out_k.quality, plain.quality, TRACE_RTOL, TRACE_ATOL)
+            & (~good | ((out_k.best_uv - rep["positions"][-1]).abs().amax(1) <= TRACE_UV_ATOL)
+               & _close(out_k.best_idepth, rep["best_idepth"], TRACE_RTOL, TRACE_ATOL)))
+    parted = ~held
+    bad = parted & ~tie
+    if bool(bad.any()):
+        rows = torch.nonzero(bad).flatten()[:5].tolist()
+        raise RuntimeError(
+            f"trace kernel disagrees on {name} at {int(bad.sum())} rows that are no tie, e.g. "
+            + "; ".join(f"row {i}: status {int(out_k.status[i])} / {int(rep['status'][i])}, "
+                        f"interval [{float(out_k.idepth_min[i]):.7g}, "
+                        f"{float(out_k.idepth_max[i]):.7g}] / [{float(plain.idepth_min[i]):.7g}"
+                        f", {float(plain.idepth_max[i]):.7g}], quality "
+                        f"{float(out_k.quality[i]):.7g} / {float(plain.quality[i]):.7g}, "
+                        f"best_uv {out_k.best_uv[i].tolist()} / "
+                        f"{rep['positions'][-1][i].tolist()}" for i in rows)
+            + f" (kernel / plain; bounds atol {TRACE_ATOL} + rtol {TRACE_RTOL}, uv "
+              f"{TRACE_UV_ATOL} px)")
+    n_parted = int(parted.sum())
+    if n_parted > TRACE_MAX_TIES:
+        raise RuntimeError(f"trace kernel on {name}: {n_parted} rows parted at a tie, more "
+                           f"than {TRACE_MAX_TIES}")
+    both = held & valid
+    e_abs = max([float((a - b)[both].abs().nan_to_num(0.0).max()) if bool(both.any()) else 0.0
+                 for a, b in ((out_k.idepth_min, plain.idepth_min),
+                              (out_k.idepth_max, plain.idepth_max))])
+    e_q = float(((out_k.quality - plain.quality).abs()
+                 / plain.quality.abs().clamp(min=1e-12))[both].nan_to_num(0.0).max()) \
+        if bool(both.any()) else 0.0
+    counts = torch.bincount(rep["status"][valid].long(), minlength=6).tolist()
+    rec = dict(rows=bank.uv.shape[0], valid=int(valid.sum()), status=counts[:5],
+               ties_found=int(tie.sum()), parted=n_parted, e_abs=e_abs, e_quality=e_q)
+    if time_it:
+        rec["ms"] = _device_ms(lambda: launch(debug=False))
+        rec["plain_ms"] = _time_ms(lambda: frame_step._trace_core_torch(*args), reps=5,
+                                   inner=5)
+        rec["bound_ms"], rec["bound_by"], rec["bytes"], rec["flops"] = trace_bound_ms(args, rep)
+    return rec
+
+
+def activation_slots(call, can):
+    """[N, F]: the target slots a candidate row's evaluations count (a valid
+    slot other than its host; ``call`` = (args, kwargs) of
+    ``trace.activate_candidates_device``, ``can`` the candidate mask)."""
+    import torch
+
+    (win_images, frame_valid, _, _, _, bank, _, _), _ = call
+    fr = torch.arange(win_images.shape[0], device=can.device)
+    return frame_valid[None, :] & can[:, None] & (bank.host_slot.long()[:, None] != fr[None, :])
+
+
+def activate_bound_ms(call, det: dict) -> tuple:
+    """The least time the card could take for one activation of the bank as
+    this run's data needs it: the larger of its bytes over the memory rate
+    and its operations over the float32 rate. Bytes: each row's results
+    written once (17 B); what the candidate test reads, in its order
+    (valid, then the status of a valid row, the quality of a GOOD one, the
+    interval of one above min_quality: 1 to 17 B); a candidate's uv, color
+    and host slot (44 B); the slot tables; the distinct texels of the
+    in-bounds samples of the 1 + iters evaluations at 12 B. Operations
+    (csrc/trace.cu): ACT_FLOPS_SAMPLE for each sample of a valid target
+    slot, ACT_FLOPS_IN more for each in-bounds one, ACT_FLOPS_SLOT a slot's
+    sums, per evaluation of a candidate row. ``det`` is the plain version's
+    ``details`` and ``can``. Returns (ms, bound_by, bytes, flops)."""
+    import torch
+
+    from ldso_tpu_torch import trace as tm
+
+    (win_images, _, _, _, _, bank, _, min_q), _ = call
+    F, h, w = win_images.shape[0], win_images.shape[1], win_images.shape[2]
+    n = bank.uv.shape[0]
+    can = det["can"]
+    ok_f = activation_slots(call, can)
+    texels, n_in = [], 0
+    for uvn, inb in det["samples"]:
+        u0 = uvn[..., 0][inb].floor().long().clamp(0, w - 1)
+        v0 = uvn[..., 1][inb].floor().long().clamp(0, h - 1)
+        f = torch.nonzero(inb)[:, 1]
+        u1, v1 = (u0 + 1).clamp(max=w - 1), (v0 + 1).clamp(max=h - 1)
+        base = f * (h * w)
+        texels.append(torch.cat([base + v0 * w + u0, base + v0 * w + u1, base + v1 * w + u0,
+                                 base + v1 * w + u1]))
+        n_in += int(inb.sum())
+    n_evals = len(det["samples"])
+    n_texels = int(torch.cat(texels).unique().numel())
+    good = bank.valid & (bank.last_status == tm.GOOD)
+    n_test = (n + 4 * int(bank.valid.sum()) + 4 * int(good.sum())
+              + 8 * int((good & (bank.quality > min_q)).sum()))
+    n_bytes = 17 * n + n_test + 44 * int(can.sum()) + F * F * 18 * 4 + F + 16 + 12 * n_texels
+    flops = n_evals * (ACT_FLOPS_SAMPLE * 8 * int(ok_f.sum())
+                       + ACT_FLOPS_SLOT * F * int(ok_f.any(1).sum())) + ACT_FLOPS_IN * n_in
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
+    return (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
+            n_bytes, flops)
+
+
+def check_activate(name: str, call, time_it: bool = False) -> dict:
+    """Hold the activation kernel against its plain version on one
+    keyframe's real inputs (``call`` = (args, kwargs) of
+    ``trace.activate_candidates_device``): can equal; count equal, idepth
+    within ACT_IDEPTH_ATOL + ACT_IDEPTH_RTOL |plain| and H_dd, energy within
+    ACT_SUM_ATOL + ACT_SUM_RTOL |plain| on every row but a tie (a sample of
+    one of its evaluations, at the plain version's inverse depths, within
+    TRACE_TIE_PX of the border), at most ACT_MAX_TIES of those. Two
+    launches must agree bit for bit. Returns a record; with ``time_it``
+    also the kernel's device ms, the plain version's ms and the bound."""
+    import torch
+
+    from ldso_tpu_torch import trace as tm
+    from ldso_tpu_torch.kernels import trace as ktr
+
+    args, kw = call
+    win_images, frame_valid, T_all, x_affine, expo_all, bank, intr, min_q = args
+    T_rel, alpha, beta = tm.activation_slot_tables(T_all, x_affine, expo_all)
+
+    def launch():
+        return ktr.activate_bank_cuda(win_images, frame_valid, T_rel, alpha, beta, bank, intr,
+                                      min_q, **kw)
+
+    out_k, again = launch(), launch()
+    for key in out_k:
+        if not _bits_equal(out_k[key], again[key]):
+            raise RuntimeError(f"activation kernel on {name}: two launches differ in {key}")
+    det = {}
+    out_p = tm.activate_candidates_torch(*args, **kw, details=det)
+    det["can"] = out_p["can"]
+    torch.cuda.synchronize()
+    if not torch.equal(out_k["can"], out_p["can"]):
+        raise RuntimeError(f"activation kernel on {name}: can differs on "
+                           f"{int((out_k['can'] != out_p['can']).sum())} rows")
+    tie = torch.zeros_like(out_p["can"])
+    ok_f = activation_slots(call, out_p["can"])
+    for uvn, _ in det["samples"]:
+        tie |= (_near_border(uvn, win_images.shape[2], win_images.shape[1])
+                & ok_f[..., None]).flatten(1).any(1)
+    held = ((out_k["count"] == out_p["count"])
+            & _close(out_k["idepth"], out_p["idepth"], ACT_IDEPTH_RTOL, ACT_IDEPTH_ATOL)
+            & _close(out_k["H_dd"], out_p["H_dd"], ACT_SUM_RTOL, ACT_SUM_ATOL)
+            & _close(out_k["energy"], out_p["energy"], ACT_SUM_RTOL, ACT_SUM_ATOL))
+    bad = ~held & ~tie
+    if bool(bad.any()):
+        rows = torch.nonzero(bad).flatten()[:5].tolist()
+        raise RuntimeError(
+            f"activation kernel disagrees on {name} at {int(bad.sum())} rows that are no tie, "
+            f"e.g. " + "; ".join(
+                f"row {i}: " + ", ".join(f"{k} {float(out_k[k][i]):.7g} / "
+                                         f"{float(out_p[k][i]):.7g}"
+                                         for k in ("idepth", "H_dd", "energy", "count"))
+                for i in rows)
+            + f" (kernel / plain; idepth atol {ACT_IDEPTH_ATOL} + rtol {ACT_IDEPTH_RTOL}, sums "
+              f"atol {ACT_SUM_ATOL} + rtol {ACT_SUM_RTOL}, count equal)")
+    n_parted = int((~held).sum())
+    if n_parted > ACT_MAX_TIES:
+        raise RuntimeError(f"activation kernel on {name}: {n_parted} rows parted at a tie, "
+                           f"more than {ACT_MAX_TIES}")
+    can = out_p["can"] & held
+
+    def rel(k):
+        d = (out_k[k] - out_p[k]).abs() / out_p[k].abs().clamp(min=1e-12)
+        return float(d[can].max()) if bool(can.any()) else 0.0
+
+    rec = dict(rows=bank.uv.shape[0], candidates=int(out_p["can"].sum()),
+               slots=int(frame_valid.sum()), ties_found=int(tie.sum()), parted=n_parted,
+               e_idepth=rel("idepth"), e_H=rel("H_dd"), e_E=rel("energy"),
+               e_abs=float((out_k["idepth"] - out_p["idepth"])[can].abs().max())
+               if bool(can.any()) else 0.0)
+    if time_it:
+        rec["ms"] = _device_ms(launch)
+        rec["plain_ms"] = _time_ms(lambda: tm.activate_candidates_torch(*args, **kw), reps=5,
+                                   inner=3)
+        rec["bound_ms"], rec["bound_by"], rec["bytes"], rec["flops"] = \
+            activate_bound_ms(call, det)
+    return rec
 
 
 def _pctl(xs, q: float) -> float:
@@ -1725,6 +2245,7 @@ def main() -> int:
     # ---- 1. device
     import ldso_tpu_torch  # noqa: F401  (sets the float32 precision flags)
     from ldso_tpu_torch.kernels import cuda_build, pallas_pyramid, track_level
+    from ldso_tpu_torch.kernels import trace as trace_kernel
     from ldso_tpu_torch.kernels.pyramid import build_pyramid_torch
 
     card = _card_line()
@@ -1762,20 +2283,22 @@ def main() -> int:
                         traj_kind="out_and_back", pool=renders)]
         t0 = time.perf_counter()
         builds = [pool.submit(pallas_pyramid.build), pool.submit(track_level.build),
-                  pool.submit(track_level.build, True),
+                  pool.submit(track_level.build, True), pool.submit(trace_kernel.build),
                   pool.submit(cuda_build.ptxas_report, track_level.SOURCE),
+                  pool.submit(cuda_build.ptxas_report, trace_kernel.SOURCE, (),
+                              trace_kernel.NO_FMAD),
                   pool.submit(native.available)]
-        lib, lib_track, lib_phases, ptxas, has_native = (b.result() for b in builds)
+        lib, lib_track, lib_phases, lib_trace, ptxas, ptxas_trace, has_native = (
+            b.result() for b in builds)
         reason = ""
         if not has_native:
             lines = (native.unavailable_reason() or "no reason given").strip().splitlines()
             # the compiler's or linker's own complaint, else the last line
             reason = f" ({next((ln for ln in lines if 'error' in ln), lines[-1]).strip()})"
-        regs = "; ".join(ln.split("info    : ")[-1].strip() for ln in ptxas.splitlines()
-                         if "registers" in ln or "spill" in ln)
         print(f"build: {os.path.relpath(lib, root)}, {os.path.relpath(lib_track, root)} "
-              f"(track_level: {regs}), {os.path.relpath(lib_phases, root)} (the tracker "
-              f"kernel with -DTRACK_LEVEL_PHASES); native image loader "
+              f"({ptxas_kernels(ptxas)}), {os.path.relpath(lib_phases, root)} (the tracker "
+              f"kernel with -DTRACK_LEVEL_PHASES), {os.path.relpath(lib_trace, root)} "
+              f"(-fmad=false; {ptxas_kernels(ptxas_trace)}); native image loader "
               f"{'built' if has_native else 'NOT built'}{reason}; frames will be decoded by "
               f"'{datasets.active_decoder()}'; {time.perf_counter() - t0:.2f} s", flush=True)
         (tum_root, tum_gt), (ds, frames), (lds, lframes) = (f.result() for f in futures)
@@ -1851,15 +2374,19 @@ def main() -> int:
     t_phase = time.perf_counter()
     pallas_pyramid.reset_launches()
     track_level.reset_launches()
+    trace_kernel.reset_launches()
     probe = BenchProbe(TRACK_CAPTURE, TRACK_PROFILE)
-    main = drive_bench(preset("default"), ds, frames, dev, sync=sync, probe=probe)
+    with count_keyframes() as kf_main:
+        main = drive_bench(preset("default"), ds, frames, dev, sync=sync, probe=probe)
     launches_main = pallas_pyramid.LAUNCHES
     track_main = track_level.LAUNCHES
+    trace_main, act_main = trace_kernel.LAUNCHES_TRACE, trace_kernel.LAUNCHES_ACTIVATE
     # one launch per frame: a bootstrap frame builds one pyramid too
     if launches_main != len(frames) or main["n_tracked"] == 0:
         raise RuntimeError(f"pyramid kernel launched {launches_main} times for "
                            f"{len(frames)} frames ({main['n_tracked']} tracked)")
     _check_track_launches("phase 4", track_main, main["n_tracked"])
+    _check_trace_launches("phase 4", trace_main, act_main, main["n_tracked"], kf_main[0])
     print(f"main path: {len(frames)} frames ({main['n_init']} to initialize, "
           f"{main['n_tracked']} tracked, 0 lost), {main['n_kf']} KFs ({main['n_marg']} "
           f"marginalized), {main['n_corner_act']} corner-seeded activations, ATE "
@@ -1868,7 +2395,9 @@ def main() -> int:
           f"{main['fps']:.3f} frames/s over {main['n_rate']} frames of {N_WARM}.."
           f"{len(frames) - 1} (the profiled {TRACK_PROFILE[0]}..{TRACK_PROFILE[-1]} left "
           f"out; host clock, synchronized per frame), pyramid launches {launches_main}, "
-          f"tracker launches {track_main} ({TRACK_LAUNCHES} per tracked frame), phase wall time "
+          f"tracker launches {track_main} ({TRACK_LAUNCHES} per tracked frame), trace launches "
+          f"{trace_main} (1 per tracked frame), activation launches {act_main} (1 per "
+          f"keyframe built, {kf_main[0]}), phase wall time "
           f"{time.perf_counter() - t_phase:.1f} s | {card}", flush=True)
     prof = probe.summary()
     split = ", ".join(f"{k} {prof[k]['host_ms']:.2f} ms host / {prof[k]['device_ms']:.3f} ms "
@@ -1878,6 +2407,13 @@ def main() -> int:
           f"{TRACK_PROFILE[-1]}, per frame): {prof['wall_ms']:.2f} ms wall (host clock, "
           f"under the profiler), {prof['launches_per_frame']:.1f} device kernels / copies, "
           f"device busy {busy}; {split} | {card}", flush=True)
+    print(f"keyframe path by stage (same profile, per keyframe, {prof['keyframe']['calls']} "
+          f"keyframes): whole {prof['keyframe']['host_ms_call']:.2f} ms host / "
+          f"{prof['keyframe']['device_ms_call']:.3f} ms device; " + ", ".join(
+              f"{k} {prof[k]['host_ms_call'] * prof[k]['calls'] / max(prof['keyframe']['calls'], 1):.2f}"
+              f" / {prof[k]['device_ms_call'] * prof[k]['calls'] / max(prof['keyframe']['calls'], 1):.3f}"
+              f" ms ({prof[k]['calls']} calls)" for k in BenchProbe.KF_STAGES)
+          + f" (the kernels' own device time is not under a label) | {card}", flush=True)
 
     # ---- 4b. the tracker kernel on the main path's real inputs
     t_phase = time.perf_counter()
@@ -1957,23 +2493,86 @@ def main() -> int:
     n_step, ms_step = _device_events(lambda: frame_step.fused_step(*step))
     with plain_tracker():
         n_step_p, ms_step_p = _device_events(lambda: frame_step.fused_step(*step))
+        with plain_trace():
+            n_step_pp, ms_step_pp = _device_events(lambda: frame_step.fused_step(*step))
+    if n_step >= STEP_MAX_EVENTS:
+        raise RuntimeError(f"one fused_step took {n_step} device kernels / copies, not fewer "
+                           f"than {STEP_MAX_EVENTS}")
     print(f"track_frame on bench frame {mid}: {n_k} device kernels / copies, {dev_ms_k:.3f} ms "
           f"device (kernel path; at most {TRACK_MAX_EVENTS}); plain version {n_p}, "
           f"{dev_ms_p:.3f} ms; ran under torch.cuda.set_sync_debug_mode('error') without a "
           f"host sync. One whole fused_step (non-keyframe work of a tracked frame): {n_step} "
           f"device kernels / copies, {ms_step:.3f} ms device; with the plain tracker "
-          f"{n_step_p}, {ms_step_p:.3f} ms (torch.profiler); phase wall time "
+          f"{n_step_p}, {ms_step_p:.3f} ms; with the plain tracker and the plain trace "
+          f"{n_step_pp}, {ms_step_pp:.3f} ms (torch.profiler; fewer than {STEP_MAX_EVENTS} "
+          f"held); phase wall time {time.perf_counter() - t_phase:.1f} s | {card}", flush=True)
+
+    # ---- 4c. the trace and activation kernels on the main path's real inputs
+    t_phase = time.perf_counter()
+    from ldso_tpu_torch import trace as trace_mod
+
+    missing = [i for i in TRACK_CAPTURE if "trace" not in probe.inputs.get(i, {})]
+    if missing or len(probe.activations) < ACT_KEEP:
+        raise RuntimeError(f"phase 4 kept no trace inputs on frames {missing} or "
+                           f"{len(probe.activations)} activations of {ACT_KEEP}")
+    trace_recs = {}
+    for i in TRACK_CAPTURE:
+        r = trace_recs[i] = check_trace(f"bench frame {i}", probe.inputs[i]["trace"],
+                                        time_it=(i == mid))
+        print(f"kernel trace vs plain [bench frame {i}, the system's bank of {r['rows']} rows, "
+              f"{r['valid']} valid; status GOOD / OOB / OUTLIER / SKIPPED / BADCONDITION "
+              f"{r['status']}]: bank fields max|err| {r['e_abs']:.3g}, quality rel "
+              f"{r['e_quality']:.3g}, rows parted at a tie {r['parted']} (ties found "
+              f"{r['ties_found']}; at most {TRACE_MAX_TIES}), bitwise equal in a second launch "
+              f"(bounds: atol {TRACE_ATOL} + rtol {TRACE_RTOL}, best_uv {TRACE_UV_ATOL} px on "
+              f"GOOD rows; ties within rtol {TRACE_TIE_RTOL} of a threshold or {TRACE_TIE_PX} px"
+              f" of the border) | {card}", flush=True)
+    tr = trace_recs[mid]
+    print(f"kernel trace timing [bench frame {mid}, one launch]: device {tr['ms']:.4f} ms "
+          f"(queued behind a spin kernel), plain _trace_core_torch {tr['plain_ms']:.4f} ms "
+          f"(CUDA events over back-to-back calls), bound {tr['bound_ms']:.6f} ms by "
+          f"{tr['bound_by']} ({tr['bytes']} B, {tr['flops']} flops) | {card}", flush=True)
+    act_recs = []
+    for j, call in enumerate(probe.activations):
+        r = check_activate(f"keyframe {j + 1} after bench frame {ACT_AFTER}", call,
+                           time_it=(j == 0))
+        act_recs.append(r)
+        print(f"kernel activate vs plain [keyframe {j + 1} after bench frame {ACT_AFTER}: "
+              f"{r['rows']} rows, {r['candidates']} candidates, {r['slots']} window slots]: "
+              f"can equal, idepth rel {r['e_idepth']:.3g} (max|err| {r['e_abs']:.3g}), H_dd rel "
+              f"{r['e_H']:.3g}, energy rel {r['e_E']:.3g}, rows parted at a tie "
+              f"{r['parted']} (ties found {r['ties_found']}; at most {ACT_MAX_TIES}), bitwise "
+              f"equal in a second launch (bounds: idepth atol {ACT_IDEPTH_ATOL} + rtol "
+              f"{ACT_IDEPTH_RTOL}, sums atol {ACT_SUM_ATOL} + rtol {ACT_SUM_RTOL}, count equal) "
+              f"| {card}", flush=True)
+    ar = act_recs[0]
+    args_a, kw_a = probe.activations[0]
+    n_act, ms_act = _device_events(lambda: trace_mod.activate_candidates_device(*args_a, **kw_a))
+    with plain_trace():
+        n_act_p, ms_act_p = _device_events(
+            lambda: trace_mod.activate_candidates_device(*args_a, **kw_a))
+    print(f"kernel activate timing [keyframe 1 after bench frame {ACT_AFTER}, one launch]: "
+          f"device {ar['ms']:.4f} ms (queued behind a spin kernel), plain "
+          f"activate_candidates_torch {ar['plain_ms']:.4f} ms, bound {ar['bound_ms']:.6f} ms by "
+          f"{ar['bound_by']} ({ar['bytes']} B, {ar['flops']} flops); one "
+          f"activate_candidates_device call {n_act} device kernels / copies, {ms_act:.3f} ms "
+          f"device, plain {n_act_p}, {ms_act_p:.3f} ms (torch.profiler); phase wall time "
           f"{time.perf_counter() - t_phase:.1f} s | {card}", flush=True)
 
     # ---- 5. loop closure on the loop sequence
     t_phase = time.perf_counter()
     pallas_pyramid.reset_launches()
     track_level.reset_launches()
-    loop = drive_loop_pair(preset("default"), lds, lframes, dev, sync=sync)
+    trace_kernel.reset_launches()
+    with count_keyframes() as kf_loop:
+        loop = drive_loop_pair(preset("default"), lds, lframes, dev, sync=sync)
     launches_loop = pallas_pyramid.LAUNCHES
     track_loop = track_level.LAUNCHES
+    trace_loop, act_loop = trace_kernel.LAUNCHES_TRACE, trace_kernel.LAUNCHES_ACTIVATE
     _check_track_launches("phase 5", track_loop,
                           loop["off"]["n_tracked"] + loop["on"]["n_tracked"])
+    _check_trace_launches("phase 5", trace_loop, act_loop,
+                          loop["off"]["n_tracked"] + loop["on"]["n_tracked"], kf_loop[0])
     # two drives of one launch per frame, and the relocalization's pyramid
     if launches_loop != 2 * len(lframes) + 1:
         raise RuntimeError(f"pyramid kernel launched {launches_loop} times in the loop "
@@ -1990,7 +2589,8 @@ def main() -> int:
           f"synchronized per frame); relocalization on frame {loop['reloc']['frame']} "
           f"-> kf {loop['reloc']['kf_id']} with {loop['reloc']['n_inliers']} inliers, "
           f"center offset {loop['reloc']['d_est']:.4f} (bound {loop['reloc']['bound']:.4f}); "
-          f"pyramid launches {launches_loop}, tracker launches {track_loop}; phase wall time "
+          f"pyramid launches {launches_loop}, tracker launches {track_loop}, trace launches "
+          f"{trace_loop}, activation launches {act_loop}; phase wall time "
           f"{time.perf_counter() - t_phase:.1f} s | {card}", flush=True)
 
     # ---- 6. async modes, free-running
@@ -2005,10 +2605,16 @@ def main() -> int:
              (lds, lframes), on["ate"])):
         pallas_pyramid.reset_launches()
         track_level.reset_launches()
-        r = drive_async(preset("default"), *seq, dev, sync, ate_sync, **kw)
+        trace_kernel.reset_launches()
+        with count_keyframes() as kf_async:
+            r = drive_async(preset("default"), *seq, dev, sync, ate_sync, **kw)
         r["launches"] = pallas_pyramid.LAUNCHES
         r["track_launches"] = track_level.LAUNCHES
+        r["trace_launches"] = trace_kernel.LAUNCHES_TRACE
+        r["act_launches"] = trace_kernel.LAUNCHES_ACTIVATE
         _check_track_launches(name, r["track_launches"], r["n_tracked"])
+        _check_trace_launches(name, r["trace_launches"], r["act_launches"], r["n_tracked"],
+                              kf_async[0])
         if r["launches"] != r["launches_expected"]:
             raise RuntimeError(f"{name}: pyramid kernel launched {r['launches']} times, "
                                f"expected {r['launches_expected']}")
@@ -2017,6 +2623,8 @@ def main() -> int:
         raise RuntimeError("the batched drive left no tail of fewer than a batch")
     launches_async = sum(r["launches"] for r in drives.values())
     track_async = sum(r["track_launches"] for r in drives.values())
+    trace_async = sum(r["trace_launches"] for r in drives.values())
+    act_async = sum(r["act_launches"] for r in drives.values())
     print(f"async modes (free-running, host clock over the whole drive with its drain; "
           f"latency = add_frame to pose available) | {card}", flush=True)
     print(f"  sync, bench sequence (phase 4): {len(frames)} frames, "
@@ -2040,20 +2648,30 @@ def main() -> int:
     os.makedirs(out_dir)
     pallas_pyramid.reset_launches()
     track_level.reset_launches()
-    cli_run = drive_cli(tum_root, tum_gt, out_dir)
+    trace_kernel.reset_launches()
+    with count_keyframes() as kf_cli:
+        cli_run = drive_cli(tum_root, tum_gt, out_dir)
     launches_cli = pallas_pyramid.LAUNCHES
     track_cli = track_level.LAUNCHES
+    trace_cli, act_cli = trace_kernel.LAUNCHES_TRACE, trace_kernel.LAUNCHES_ACTIVATE
     # a metrics line per tracked frame
     _check_track_launches("phase 7 (CLI)", track_cli, cli_run["n_metrics"])
+    _check_trace_launches("phase 7 (CLI)", trace_cli, act_cli, cli_run["n_metrics"], kf_cli[0])
     if launches_cli != cli_run["n_fed"]:
         raise RuntimeError(f"pyramid kernel launched {launches_cli} times for "
                            f"{cli_run['n_fed']} frames fed by the CLI")
     pallas_pyramid.reset_launches()
     track_level.reset_launches()
-    resume = drive_resume(preset("default"), tum_root, out_dir, dev, sync)
+    trace_kernel.reset_launches()
+    with count_keyframes() as kf_resume:
+        resume = drive_resume(preset("default"), tum_root, out_dir, dev, sync)
     launches_resume = pallas_pyramid.LAUNCHES
     track_resume = track_level.LAUNCHES
+    trace_resume = trace_kernel.LAUNCHES_TRACE
+    act_resume = trace_kernel.LAUNCHES_ACTIVATE
     _check_track_launches("phase 7 (resume)", track_resume, resume["n_tracked"])
+    _check_trace_launches("phase 7 (resume)", trace_resume, act_resume, resume["n_tracked"],
+                          kf_resume[0])
     if launches_resume != resume["launches_expected"]:
         raise RuntimeError(f"pyramid kernel launched {launches_resume} times in the resume "
                            f"drives, expected {resume['launches_expected']}")
@@ -2068,7 +2686,8 @@ def main() -> int:
           f"({cli_run['n_bootstrap']} bootstrap frames write none), PLY {cli_run['n_pts']} "
           f"points, {cs['fps']} frames/s (the CLI's own clock, all frames; phase 4 "
           f"{main['fps_all']:.3f}), whole call {cli_run['wall']:.1f} s, pyramid launches "
-          f"{launches_cli}, tracker launches {track_cli} | {card}", flush=True)
+          f"{launches_cli}, tracker launches {track_cli}, trace launches {trace_cli}, "
+          f"activation launches {act_cli} | {card}", flush=True)
     print(f"  reader, per frame: decode {rt['decode_ms']:.3f} ms (host, zip read + PNG, no "
           f"prefetch), response + vignette + remap {rt['device_ms']:.4f} ms (device, CUDA "
           f"events), the two copies {rt['copy_ms']:.3f} ms (host clock), whole get_image "
@@ -2079,7 +2698,8 @@ def main() -> int:
           f"{N_RESUME}..{resume['n_frames'] - 1} again from it: max |position gap| to the "
           f"uninterrupted run {resume['gap']:.3g} (bound {RESUME_ATOL}), KFs "
           f"{resume['n_kf'][0]} / {resume['n_kf'][1]}, pyramid launches {launches_resume}, "
-          f"tracker launches {track_resume}; "
+          f"tracker launches {track_resume}, trace launches {trace_resume}, activation "
+          f"launches {act_resume}; "
           f"phase wall time {time.perf_counter() - t_phase:.1f} s | {card}", flush=True)
 
     # ---- 8. the distributed solvers: ranks on the one card
@@ -2120,7 +2740,27 @@ def main() -> int:
         "phase_cycles": {f"L{r['level']}": {n: r[n] for n in _phase_keys(r)}
                          for r in phases},
         "track_frame_kernels": n_k, "track_frame_kernels_plain": n_p,
-        "fused_step_kernels": n_step, "fused_step_kernels_plain": n_step_p}]}), flush=True)
+        "fused_step_kernels": n_step, "fused_step_kernels_plain": n_step_p}, {
+        "name": "trace", "route": "cuda", "source": "ldso_tpu_torch/csrc/trace.cu",
+        "replaces": "ldso_tpu/trace.py:46",
+        "launches": trace_main + trace_loop + trace_async + trace_cli + trace_resume,
+        "max_abs_err": max(r["e_abs"] for r in trace_recs.values()),
+        "ties": sum(r["parted"] for r in trace_recs.values()),
+        "ms": tr["ms"], "ms_is": f"device, one launch on bench frame {mid}",
+        "plain_ms": tr["plain_ms"], "bound_ms": tr["bound_ms"], "bound_by": tr["bound_by"],
+        "library_ms": None, "launches_per_frame": 1,
+        "fused_step_kernels": n_step, "fused_step_kernels_plain": n_step_pp,
+        "trace_host_ms_per_frame": prof["trace"]["host_ms"],
+        "trace_device_ms_per_frame": prof["trace"]["device_ms"]}, {
+        "name": "activate", "route": "cuda", "source": "ldso_tpu_torch/csrc/trace.cu",
+        "replaces": "ldso_tpu/trace.py:292",
+        "launches": act_main + act_loop + act_async + act_cli + act_resume,
+        "max_abs_err": max(r["e_abs"] for r in act_recs),
+        "ties": sum(r["parted"] for r in act_recs),
+        "ms": ar["ms"], "ms_is": f"device, one launch on keyframe 1 after bench frame "
+        f"{ACT_AFTER}", "plain_ms": ar["plain_ms"], "bound_ms": ar["bound_ms"],
+        "bound_by": ar["bound_by"], "library_ms": None, "launches_per_keyframe": 1,
+        "call_kernels": n_act, "call_kernels_plain": n_act_p}]}), flush=True)
     print(f"card: {_card_line()}", flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

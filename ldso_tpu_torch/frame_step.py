@@ -95,7 +95,56 @@ def _track_pyr(pyr, gsq, ref, T_last, T_prelast, ab0, intr, new_exposure, cfg):
 
 def _trace_core(img3_new, bank, T_eval, x, exposure_all, T_new_cw, ab_abs,
                 exposure_new, intr, cfg) -> Bank:
-    """Epipolar trace of every immature point against the new frame."""
+    """Epipolar trace of every immature point against the new frame:
+    ``_trace_core_torch`` for CPU tensors, the CUDA kernel (one launch,
+    ``kernels/trace.trace_bank_cuda``) for CUDA tensors."""
+    if img3_new.device.type == "cpu":
+        return _trace_core_torch(img3_new, bank, T_eval, x, exposure_all, T_new_cw, ab_abs,
+                                 exposure_new, intr, cfg)
+    if img3_new.device.type == "cuda":
+        return _trace_core_kernel(img3_new, bank, T_eval, x, exposure_all, T_new_cw, ab_abs,
+                                  exposure_new, intr, cfg)
+    raise ValueError(f"no trace for device {img3_new.device}")
+
+
+def _trace_kw(cfg) -> dict:
+    tcfg = cfg.trace
+    return dict(num_samples=cfg.shapes.epi_samples, gn_iters=tcfg.gn_iterations,
+                max_pix_search_frac=tcfg.max_pix_search_frac, min_quality=tcfg.min_quality,
+                step_size=tcfg.step_size, slack_interval=tcfg.trace_slack_interval,
+                extra_slack=tcfg.extra_slack, gn_threshold=tcfg.gn_threshold,
+                sweep_pattern=tcfg.sweep_pattern)
+
+
+def trace_slot_tables(T_eval, x, exposure_all, T_new_cw, ab_abs, exposure_new):
+    """Each window slot's hostToNew pose [F, 4, 4] and (alpha, beta)
+    transfer to the new frame [F, 2]: the expressions
+    ``_trace_core_torch`` evaluates per point, per slot (a point's values
+    are its host slot's, gathered)."""
+    T_all = lie.se3_mul(lie.se3_exp(x[:, :6]), T_eval)           # [F,4,4]
+    T_hn = T_new_cw @ lie.se3_inverse(T_all)                     # [F,4,4]
+    ea = exposure_all * torch.exp(x[:, 6])
+    alpha = (exposure_new * torch.exp(ab_abs[0])) / torch.clamp(ea, min=1e-12)
+    beta = ab_abs[1] - alpha * x[:, 7]
+    return T_hn, torch.stack([alpha, beta], dim=-1)
+
+
+def _trace_core_kernel(img3_new, bank, T_eval, x, exposure_all, T_new_cw, ab_abs,
+                       exposure_new, intr, cfg) -> Bank:
+    from ldso_tpu_torch.kernels.trace import trace_bank_cuda
+
+    T_hn, ab = trace_slot_tables(T_eval, x, exposure_all, T_new_cw, ab_abs, exposure_new)
+    out = trace_bank_cuda(img3_new.contiguous(), Bank(*(f.contiguous() for f in bank)),
+                          T_hn, ab, intr.contiguous(), **_trace_kw(cfg))
+    return bank._replace(valid=out.valid, idepth_min=out.idepth_min,
+                         idepth_max=out.idepth_max, quality=out.quality,
+                         last_status=out.last_status, outlier_count=out.outlier_count)
+
+
+def _trace_core_torch(img3_new, bank, T_eval, x, exposure_all, T_new_cw, ab_abs,
+                      exposure_new, intr, cfg, details=None) -> Bank:
+    """The plain version of the trace kernel: ``trace.trace_points`` (its
+    ``details`` passed on) and the bank update, in torch."""
     tcfg = cfg.trace
     hs = bank.host_slot.long()
     T_all = lie.se3_mul(lie.se3_exp(x[:, :6]), T_eval)           # [F,4,4]
@@ -121,7 +170,8 @@ def _trace_core(img3_new, bank, T_eval, x, exposure_all, T_new_cw, ab_abs,
         slack_interval=tcfg.trace_slack_interval,
         extra_slack=tcfg.extra_slack,
         gn_threshold=tcfg.gn_threshold,
-        sweep_pattern=tcfg.sweep_pattern)
+        sweep_pattern=tcfg.sweep_pattern,
+        details=details)
 
     st = res.status
     good = bank.valid & (st == trace_mod.GOOD)

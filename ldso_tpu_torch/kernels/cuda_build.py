@@ -5,8 +5,9 @@ library with a plain C interface, at first use, into
 ``.build/ldso_tpu_torch/`` at the root of the checkout. The library's file
 name carries a hash of the source and the flags, so an edited source is
 never served stale. A build may add preprocessor defines (``defines``,
-e.g. ``("TRACK_LEVEL_PHASES",)`` for an instrumented second library); they
-are part of the flags, so of the hash. Nothing is compiled or loaded at
+e.g. ``("TRACK_LEVEL_PHASES",)`` for an instrumented second library) and
+nvcc flags of its own (``extra``, e.g. ``("-fmad=false",)``); both are
+part of the flags, so of the hash. Nothing is compiled or loaded at
 import.
 """
 
@@ -42,16 +43,16 @@ def csrc(module_file: str, name: str) -> str:
                         "csrc", name)
 
 
-def _flags(defines: tuple) -> list:
-    return [*NVCC_FLAGS, *(f"-D{d}" for d in defines)]
+def _flags(defines: tuple, extra: tuple = ()) -> list:
+    return [*NVCC_FLAGS, *extra, *(f"-D{d}" for d in defines)]
 
 
-def build(src: str, defines: tuple = ()) -> str:
+def build(src: str, defines: tuple = (), extra: tuple = ()) -> str:
     """Compile the source at ``src`` (if not already built from the same
     text and flags) into ``libldso_<stem>_<hash>.so`` and return its path."""
     with open(src, "rb") as f:
         text = f.read()
-    flags = _flags(defines)
+    flags = _flags(defines, extra)
     tag = hashlib.sha256(text + " ".join(flags).encode()).hexdigest()[:16]
     stem = os.path.splitext(os.path.basename(src))[0]
     lib = os.path.join(BUILD_DIR, f"libldso_{stem}_{tag}.so")
@@ -64,10 +65,11 @@ def build(src: str, defines: tuple = ()) -> str:
     return lib
 
 
-def ptxas_report(src: str, defines: tuple = ()) -> str:
+def ptxas_report(src: str, defines: tuple = (), extra: tuple = ()) -> str:
     """What ``ptxas -v`` says of the source at ``src``: registers, shared
     memory and spills of each kernel (no library is written)."""
-    out = subprocess.run([nvcc(), *_flags(defines), "-Xptxas", "-v", "-o", os.devnull, src],
+    out = subprocess.run([nvcc(), *_flags(defines, extra), "-Xptxas", "-v", "-o", os.devnull,
+                          src],
                          capture_output=True, text=True)
     if out.returncode:
         raise RuntimeError(f"nvcc failed on {src}:\n{out.stdout}{out.stderr}")
@@ -75,7 +77,7 @@ def ptxas_report(src: str, defines: tuple = ()) -> str:
 
 
 @functools.lru_cache(maxsize=None)
-def load(src: str, defines: tuple = ()) -> ctypes.CDLL:
-    """The library of the source at ``src`` (with ``defines``), built if
-    need be, loaded once."""
-    return ctypes.CDLL(build(src, defines))
+def load(src: str, defines: tuple = (), extra: tuple = ()) -> ctypes.CDLL:
+    """The library of the source at ``src`` (with ``defines`` and
+    ``extra`` flags), built if need be, loaded once."""
+    return ctypes.CDLL(build(src, defines, extra))

@@ -7,13 +7,15 @@ steps along the line, shrink [idepth_min, idepth_max], and classify
 GOOD / OOB / OUTLIER / SKIPPED / BADCONDITION.
 
 ``trace_points`` and ``optimize_idepth_bank`` are torch compositions
-(the reference's XLA-fused gather-and-reduce loops); each is a candidate
-for a hand kernel once the card's numbers show it binding.
+(the reference's XLA-fused gather-and-reduce loops): on the card the bank's
+two programs run as CUDA kernels instead (``kernels/trace.py``; the trace
+through ``frame_step._trace_core``, the activation through
+:func:`activate_candidates_device`), and these are their plain versions.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -57,7 +59,13 @@ def trace_points(
     extra_slack: float = 0.1,
     gn_threshold: float = 0.1,
     sweep_pattern: int = 8,
+    details: Optional[dict] = None,
 ) -> TraceResult:
+    """The epipolar search of every point in the new frame. ``details``, if
+    given, is filled with what the status decisions read (the sweep's
+    samples, in-bounds mask and SSDs, the best sample, each GN step before
+    its threshold, the positions it reaches, g_along, the new interval, the
+    energy gate); it costs no extra work."""
     h, w = img3_new.shape[0], img3_new.shape[1]
     N = uv.shape[0]
     dev = uv.device
@@ -110,17 +118,12 @@ def trace_points(
     packed_I = pack_corners(img3_new[..., :1])                         # [H, W, 4]
     packed3 = pack_corners(img3_new)                                   # [H, W, 12]
     pred_full = ab_hn[:, 0:1] * color + ab_hn[:, 1:2]                  # [N, 8]
-    if sweep_pattern >= 8:
-        sweep_idx = list(range(8))
-    elif sweep_pattern == 4:
-        sweep_idx = [0, 3, 5, 7]
-    else:
-        sweep_idx = [0, 4, 7][: max(sweep_pattern, 1)]
+    sweep_idx = list(sweep_indices(sweep_pattern))
     pat_s = pat[sweep_idx]
     pred = pred_full[:, sweep_idx]
-    samp = sample_uv[:, :, None, :] + pat_s[None, None, :, :]          # [N, K, S, 2]
-    inb = torch.all(in_bounds(samp, w, h, 2.0), dim=-1)                # [N, K]
-    samp = torch.where(inb[..., None, None], samp, 2.0)
+    samp_uv = sample_uv[:, :, None, :] + pat_s[None, None, :, :]       # [N, K, S, 2]
+    inb = torch.all(in_bounds(samp_uv, w, h, 2.0), dim=-1)             # [N, K]
+    samp = torch.where(inb[..., None, None], samp_uv, 2.0)
     hit_I = bilinear_packed(packed_I, samp, 1)[..., 0]                 # [N, K, S]
     diff = hit_I - pred[:, None, :]
     ssd = torch.sum(diff * diff, dim=-1)
@@ -135,6 +138,7 @@ def trace_points(
 
     best_uv = torch.gather(sample_uv, 1, best_k[:, None, None].expand(N, 1, 2))[:, 0, :]
 
+    positions, raw_steps = [best_uv], []
     # GN sub-pixel refinement along the line
     for _ in range(gn_iters):
         hitk = bilinear_packed(packed3, best_uv[:, None, :] + pat[None, :, :], 3)
@@ -143,8 +147,10 @@ def trace_points(
         Hs = torch.sum(gk * gk, dim=-1)
         bs = torch.sum(gk * rk, dim=-1)
         step = torch.clamp(-bs / torch.clamp(Hs, min=1e-6), -step_size, step_size)
+        raw_steps.append(step)
         step = torch.where(torch.abs(step) < gn_threshold, 0.0, step)
         best_uv = best_uv + step[..., None] * dir_
+        positions.append(best_uv)
 
     # matched pixel back to inverse depth on the better-conditioned axis
     err_px = 1.0 + 0.5 * step_size
@@ -165,7 +171,8 @@ def trace_points(
     g_along = torch.abs(torch.sum(hit_best[..., 1:3] * dir_, dim=-1))
 
     searched_oob = ~ok_min | ~torch.any(inb, dim=-1)
-    is_outlier = best_e > (outlier_energy * len(sweep_idx) / 8.0) * (1.0 + extra_slack)
+    gate = (outlier_energy * len(sweep_idx) / 8.0) * (1.0 + extra_slack)
+    is_outlier = best_e > gate
     bad_cond = (g_along < 1.0) | (new_max < new_min) | (new_min < -0.1)
     low_quality = quality < min_quality
 
@@ -175,11 +182,27 @@ def trace_points(
                        (searched_oob, OOB), (~valid, UNINITIALIZED)):
         status = torch.where(cond, code, status).to(torch.int32)
 
+    if details is not None:
+        details.update(samp=samp_uv, inb=inb, ssd=ssd, best_k=best_k, best_e=best_e,
+                       seg_len=seg_len, dir=dir_, raw_steps=raw_steps, positions=positions,
+                       g_along=g_along, new_min=new_min, new_max=new_max, gate=gate,
+                       status=status, quality=quality, best_idepth=best_idepth)
     good = status == GOOD
     return TraceResult(
         idepth_min=torch.where(good, torch.clamp(new_min, min=0.0), idepth_min),
         idepth_max=torch.where(good, new_max, idepth_max),
         status=status, quality=quality, best_uv=best_uv, best_idepth=best_idepth)
+
+
+def sweep_indices(sweep_pattern: int) -> tuple:
+    """The pattern points the sweep scores: all 8 for ``sweep_pattern`` 8
+    and more, the diamond (0, 3, 5, 7) for 4, else the first
+    ``max(sweep_pattern, 1)`` of (0, 4, 7)."""
+    if sweep_pattern >= 8:
+        return tuple(range(8))
+    if sweep_pattern == 4:
+        return (0, 3, 5, 7)
+    return (0, 4, 7)[: max(sweep_pattern, 1)]
 
 
 def _huber(r, huber_th):
@@ -237,11 +260,14 @@ def optimize_idepth(win_images, frame_valid, T_rel, alpha, beta, uv, color,
 
 def optimize_idepth_bank(win_images, frame_valid, T_all, x_affine, exposure_all,
                          uv, color, idepth0, valid, host_slot, intr,
-                         iters: int = 3, huber_th: float = 9.0):
+                         iters: int = 3, huber_th: float = 9.0,
+                         details: Optional[dict] = None):
     """Per-point-host 1-dof GN on inverse depth against every window slot
     (activation of immature points). Relative transforms and affine
     transfer are gathered per point. All F target slots are evaluated as
-    one batch through the corner-packed window images."""
+    one batch through the corner-packed window images. ``details``, if
+    given, gets ``samples``: per evaluation the positions [N, F, 8, 2] and
+    the samples that count [N, F, 8]."""
     F = win_images.shape[0]
     h, w = win_images.shape[1], win_images.shape[2]
     N = uv.shape[0]
@@ -275,6 +301,8 @@ def optimize_idepth_bank(win_images, frame_valid, T_all, x_affine, exposure_all,
         up, vp = X[..., 0] / zs, X[..., 1] / zs
         uvn = torch.stack([fx * up + cx, fy * vp + cy], dim=-1)
         inb = in_bounds(uvn, w, h, 2.0) & okz & ok_f[..., None]
+        if details is not None:
+            details.setdefault("samples", []).append((uvn, inb))
         hit = bilinear_packed(packed, uvn, 3, frame=frame)             # [N, F, 8, 3]
         r = hit[..., 0] - alpha[..., None] * color[:, None, :] - beta[..., None]
         dre = 1.0 / zs
@@ -299,7 +327,43 @@ def activate_candidates_device(win_images, frame_valid, T_all, x_affine,
                                exposure_all, bank, intr, min_quality: float,
                                iters: int = 3, huber_th: float = 9.0):
     """:func:`optimize_idepth_bank` with the activation-candidate mask and
-    initial idepth computed from the live bank."""
+    initial idepth computed from the live bank: ``activate_candidates_torch``
+    for CPU tensors, the CUDA kernel (one launch,
+    ``kernels/trace.activate_bank_cuda``) for CUDA tensors. Returns a dict
+    of idepth, H_dd, energy, count [N] float32 and can [N] bool."""
+    args = (win_images, frame_valid, T_all, x_affine, exposure_all, bank, intr, min_quality)
+    if win_images.device.type == "cpu":
+        return activate_candidates_torch(*args, iters=iters, huber_th=huber_th)
+    if win_images.device.type == "cuda":
+        from ldso_tpu_torch.kernels.trace import activate_bank_cuda
+
+        T_rel, alpha, beta = activation_slot_tables(T_all, x_affine, exposure_all)
+        return activate_bank_cuda(
+            win_images.contiguous(), frame_valid.contiguous(), T_rel, alpha, beta,
+            type(bank)(*(f.contiguous() for f in bank)), intr.contiguous(), min_quality,
+            iters=iters, huber_th=huber_th)
+    raise ValueError(f"no activation for device {win_images.device}")
+
+
+def activation_slot_tables(T_all, x_affine, exposure_all):
+    """The relative poses [F, F, 4, 4] ([f, h] = T_all[f] T_all[h]^-1) and
+    the affine transfers alpha, beta [F, F] (host h to target f): the
+    expressions :func:`optimize_idepth_bank` evaluates per point, per slot
+    pair."""
+    T_rel = torch.einsum("fij,hjk->fhik", T_all, lie.se3_inverse(T_all)).contiguous()
+    ea = exposure_all * torch.exp(x_affine[:, 6])                      # [F]
+    alpha = ea[:, None] / torch.clamp(ea, min=1e-12)[None, :]          # [f, h]
+    beta = x_affine[:, None, 7] - alpha * x_affine[None, :, 7]
+    return T_rel, alpha.contiguous(), beta.contiguous()
+
+
+def activate_candidates_torch(win_images, frame_valid, T_all, x_affine,
+                              exposure_all, bank, intr, min_quality: float,
+                              iters: int = 3, huber_th: float = 9.0,
+                              details: Optional[dict] = None):
+    """The plain version of the activation kernel: the candidate mask and
+    initial idepth, then :func:`optimize_idepth_bank` (``details`` passed
+    on), in torch."""
     can = (bank.valid & (bank.last_status == GOOD)
            & (bank.quality > min_quality)
            & ~torch.isnan(bank.idepth_max)
@@ -309,6 +373,6 @@ def activate_candidates_device(win_images, frame_valid, T_all, x_affine,
     out = optimize_idepth_bank(
         win_images, frame_valid, T_all, x_affine, exposure_all,
         bank.uv, bank.color, d0, can, bank.host_slot, intr,
-        iters=iters, huber_th=huber_th)
+        iters=iters, huber_th=huber_th, details=details)
     out["can"] = can
     return out

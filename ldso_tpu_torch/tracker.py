@@ -332,28 +332,39 @@ def _flow_indicators(ref: TrackerRef, T, intr):
     return torch.sqrt(torch.sum(wv * torch.sum(d * d, dim=-1), dim=-1) / n)
 
 
+_HYP_DELTAS: dict = {}
+
+
+def _hypothesis_deltas(dev) -> torch.Tensor:
+    """The small-rotation offsets of hypotheses 4.. [18, 6] float32: each
+    axis at +-0.02 rad, then each pair of axes at (+-0.02, +-0.02); made
+    once per device (built on the card one entry at a time, they took some
+    70 launches a frame)."""
+    key = str(dev)
+    deltas = _HYP_DELTAS.get(key)
+    if deltas is None:
+        rot, rows = 0.02, []
+        for ax in range(3):
+            for sgn in (1.0, -1.0):
+                rows.append([sgn * rot if i == 3 + ax else 0.0 for i in range(6)])
+        for ax1 in range(3):
+            for ax2 in range(ax1 + 1, 3):
+                for s1 in (1.0, -1.0):
+                    for s2 in (1.0, -1.0):
+                        rows.append([s1 * rot if i == 3 + ax1 else s2 * rot if i == 3 + ax2
+                                     else 0.0 for i in range(6)])
+        deltas = _HYP_DELTAS.setdefault(
+            key, torch.tensor(rows, dtype=torch.float32, device=dev))
+    return deltas
+
+
 def motion_hypotheses(T_const_vel, num: int = 27) -> torch.Tensor:
     """[K, 4, 4] initial guesses: constant velocity, half, double, zero,
-    plus small-rotation perturbations of the constant-velocity guess."""
+    plus small-rotation perturbations of the constant-velocity guess (the
+    list padded with the constant-velocity guess, or cut, to ``num``)."""
     xi = lie.se3_log(T_const_vel.to(torch.float32))
-    cands = [xi, 0.5 * xi, 2.0 * xi, torch.zeros_like(xi)]
-    rot = 0.02
-    deltas = []
-    for ax in range(3):
-        for sgn in (1.0, -1.0):
-            d = torch.zeros_like(xi)
-            d[3 + ax] = sgn * rot
-            deltas.append(d)
-    for ax1 in range(3):
-        for ax2 in range(ax1 + 1, 3):
-            for s1 in (1.0, -1.0):
-                for s2 in (1.0, -1.0):
-                    d = torch.zeros_like(xi)
-                    d[3 + ax1] = s1 * rot
-                    d[3 + ax2] = s2 * rot
-                    deltas.append(d)
-    cands += [xi + d for d in deltas]
-    cands = cands[:num]
-    while len(cands) < num:
-        cands.append(xi)
-    return lie.se3_exp(torch.stack(cands))
+    deltas = _hypothesis_deltas(xi.device)
+    parts = [torch.stack([xi, 0.5 * xi, 2.0 * xi, torch.zeros_like(xi)]), xi + deltas]
+    if num > 4 + deltas.shape[0]:
+        parts.append(xi.expand(num - 4 - deltas.shape[0], 6))
+    return lie.se3_exp(torch.cat(parts)[:num])

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Phase 4 of ``chip_smoke.py`` alone, for one or two checkouts in turns, on
-a CUDA card: the host and device time of ``tracker.track_frame`` per frame,
-the frame's device kernels, the tracked frames/s, and the frames' wall time
+a CUDA card: the host and device time of ``tracker.track_frame`` and of the
+trace (``frame_step._trace_core``) per frame and of the keyframe path per
+keyframe, the frame's device kernels, the tracked frames/s, and the frames' wall time
 split by the keyframe decision, so that a change of the keyframe schedule
 can be told from a change of the code.
 
@@ -49,6 +50,12 @@ def drive(root: str) -> dict:
         raise SystemExit("needs a CUDA card")
     pallas_pyramid.build()
     track_level.build()
+    try:                              # a checkout with the trace kernel
+        from ldso_tpu_torch.kernels import trace as trace_kernel
+    except ImportError:
+        trace_kernel = None
+    if trace_kernel is not None:
+        trace_kernel.build()
     with concurrent.futures.ProcessPoolExecutor(
             max_workers=min(8, os.cpu_count() or 1),
             mp_context=multiprocessing.get_context("spawn")) as pool:
@@ -84,6 +91,9 @@ def drive(root: str) -> dict:
                 wall_ms=prof["wall_ms"], kernels_per_frame=prof["launches_per_frame"],
                 busy=prof["busy"], tracker_host_ms=prof["tracker"]["host_ms"],
                 tracker_device_ms=prof["tracker"]["device_ms"],
+                trace_host_ms=prof["trace"]["host_ms"], trace_device_ms=prof["trace"]["device_ms"],
+                keyframe_host_ms=prof["keyframe"]["host_ms"] * len(cs.TRACK_PROFILE)
+                / max(prof["keyframe"]["calls"], 1),
                 kf_frames=[i for i, k in enumerate(kf) if k],
                 other_frame_ms=statistics.median(plain),
                 kf_frame_ms=statistics.mean(kf_ms) if kf_ms else None)
@@ -113,7 +123,10 @@ def main() -> int:
         print(f"{name}: tracker host ms a frame "
               + ", ".join(f"{r['tracker_host_ms']:.3f}" for r in rs)
               + f" (median {statistics.median(r['tracker_host_ms'] for r in rs):.3f}); "
-              + "frames/s " + ", ".join(f"{r['fps']:.3f}" for r in rs)
+              + "trace host ms a frame " + ", ".join(f"{r['trace_host_ms']:.3f}" for r in rs)
+              + "; keyframe path host ms a keyframe " + ", ".join(
+                  f"{r['keyframe_host_ms']:.2f}" for r in rs)
+              + "; frames/s " + ", ".join(f"{r['fps']:.3f}" for r in rs)
               + "; device kernels a frame " + ", ".join(f"{r['kernels_per_frame']:.1f}"
                                                        for r in rs)
               + "; ATE " + ", ".join(f"{r['ate']:.4f}%" for r in rs)
