@@ -9,10 +9,11 @@ Phases, one result line each (any failure raises and exits non-zero):
   1. device: the card's name and power limit, torch/CUDA versions and the
      float32 precision flags;
   2. build: compile every kernel of the main path from ``ldso_tpu_torch/csrc``
-     (the pyramid, the tracker levels, and the trace and activation kernels
-     of ``trace.cu`` (built with ``-fmad=false``), each source its own nvcc,
-     started together, with the tracker's and the trace source's ``ptxas -v``
-     reports beside them: registers, shared memory, spills of each kernel),
+     (the pyramid, the tracker levels, the trace and activation kernels
+     of ``trace.cu`` (built with ``-fmad=false``) and the BA linearization of
+     ``ba.cu``, each source its own nvcc, started together, with the
+     tracker's, the trace source's and the BA source's ``ptxas -v`` reports
+     beside them: registers, shared memory, spills of each kernel),
      and the tracker kernel again with ``-DTRACK_LEVEL_PHASES`` (its clock64
      phase stamps)
      and the native image loader ``ldso_tpu_torch/native/loader.cc``
@@ -39,14 +40,17 @@ Phases, one result line each (any failure raises and exits non-zero):
      activations; the tracker kernel launched 2 times per tracked frame
      (the coarse levels of every hypothesis, then the winner's fine
      levels), the trace kernel once per tracked frame and the activation
-     kernel once per keyframe built, as in every later drive; frames 40..59
-     traced with torch.profiler (device kernels per frame, the device's
-     busy share, host and device ms of the pyramid, the tracker, the trace
-     and the keyframe path, and of the keyframe path's stages per
-     keyframe: activation, BA, the finish with its marginalization, the
-     seeding and tracker-ref rebuild), the tracking and trace inputs of
-     frames 20, 60 and 100 kept, and the activation inputs of the first
-     two keyframes after frame 20;
+     kernel once per keyframe built, and the BA kernel twice an evaluation
+     (``count_ba``), as in every later drive; frames 40..59 traced with
+     torch.profiler (device kernels per frame, the device's busy share,
+     host and device ms of the pyramid, the tracker, the trace and the
+     keyframe path, and of the keyframe path's stages per keyframe:
+     activation, BA, the finish with its marginalization, the seeding and
+     tracker-ref rebuild; ``run_ba``'s host time split by part,
+     ``ba_split``; each hand kernel's device ms a frame), the tracking and
+     trace inputs of frames 20, 60 and 100 kept, and the activation and
+     ``run_ba`` inputs of the first two keyframes after frame 20 and one
+     point fold's;
   4b. the tracker kernel on those real inputs: at each of the five levels,
      as ``track_frame`` chains them, the kernel (a one-level launch)
      against ``track_level_torch`` (T, ab, the rmse of every lane, the
@@ -73,6 +77,16 @@ Phases, one result line each (any failure raises and exits non-zero):
      beside the bound this run's data needs and the plain version's ms, and
      the device kernels of one ``activate_candidates_device`` call of each
      version;
+  4d. the BA linearization kernel on those real windows: ``assemble`` in
+     modes active and fej and ``energy_only`` on the two ``run_ba`` windows,
+     and mode fej on the point fold's, against the plain versions
+     (``check_ba``: H, b, H_xd, H_dd, b_d, e_pair, the energy, the masks
+     and the count, the tie rule, and bit for bit against a second launch),
+     each whole ``run_ba`` against the plain one (``check_run_ba``: the
+     same lambda ladder unless it parts at an energy tie, then the state);
+     on the first window the two launches' device ms beside the bound this
+     window's data needs, the whole call's and the plain version's ms, and
+     the device kernels of one ``run_ba`` call of each version;
   5. loop closure: the loop sequence of the JAX package's
      ``bench.py::bench_loop_closure`` (``preset("default")``, 320x240, 240
      frames, seed 5, out_and_back, uint8) driven twice, loop closure off
@@ -135,10 +149,12 @@ Phases, one result line each (any failure raises and exits non-zero):
      the block-halo PGO on the 4096-KF, 40-loop test curve against
      ``optimize_pose_graph``, solved twice with bitwise-equal results (its
      scatter-adds sum in a fixed order); ``graft_entry.dryrun_multichip``;
-     replicated results bitwise equal on every rank. A rank that fails, or has not
-     ended within ``DIST_TIMEOUT_S``, fails the phase.
+     replicated results bitwise equal on every rank; the BA kernel launched
+     twice a sharded step in every rank and twice an evaluation of the
+     references. A rank that fails, or has not ended within
+     ``DIST_TIMEOUT_S``, fails the phase.
 Then a JSON line of per-kernel results (pyramid, track_level, trace,
-activate), the card line again, and as the
+activate, ba_assemble), the card line again, and as the
 last line ``{"ok": true, "device": {...}}``. There is no CPU path; the CPU
 tests (tests/test_torch_distributed.py) run phase 8's rank program at
 ``preset("tiny")``.
@@ -252,6 +268,42 @@ TRACE_FLOPS_SAMPLE_IN, TRACE_FLOPS_GN = 18, 385
 # sample's (I, dx, dy) 37, residual, Jd, Huber weight and the four terms
 # 27; a slot's four 8-point sums and their addition 32
 ACT_FLOPS_SAMPLE, ACT_FLOPS_IN, ACT_FLOPS_SLOT = 32, 64, 32
+# the BA linearization kernel against its plain version (phase 4d), on the
+# windows of the first ACT_KEEP run_ba calls after bench frame ACT_AFTER and
+# of one marginalize_points call that folds. The kernel sums in another
+# order than torch's einsums (float32 sums of up to 163,840 terms: a point's
+# samples in lane order, then the points of 32 slices in point order, then
+# the slices), so an entry moves by a few float32 roundings of the sum of
+# its absolute terms, however far they cancel: every entry within K4_RTOL
+# |plain| + K4_ATOL_FRAC x the Cauchy-Schwarz bound on that sum
+# (ba_compare; a gradient entry of b can be 1e-4 of its terms, and the
+# plain version itself moves by up to 8e-6 of them between the CPU and the
+# card), H_dd and e_pair (sums of non-negative terms) against their
+# array's largest, the energy within K4_E_RTOL. The
+# masks and the residual count are decisions on the same projections, so
+# equal, but for a pair with a sample (or its FEJ centre) within
+# TRACE_TIE_PX of the in-bounds border, where the two versions'
+# coordinates, a few ulps apart, may fall on either side (a tie). Pairs
+# that part at a tie are dropped from res_mask and both versions run again,
+# held as above; more than K4_MAX_TIES such pairs in one window fail the
+# check
+K4_RTOL, K4_ATOL_FRAC, K4_E_RTOL, K4_MAX_TIES = 1e-4, 1e-5, 1e-5, 4
+# a whole run_ba against the plain one: the same lambda ladder, unless the
+# runs part at a step whose trial energy is within K4_LADDER_TIE_RTOL of the
+# energy it is tested against (a tie, reported); then x within K4_X_ATOL, c
+# within K4_C_RTOL |plain| and p_idepth within K4_IDEPTH_ATOL +
+# K4_IDEPTH_RTOL |plain| (tests/test_torch_ba.py's bounds for a few float32
+# LM steps from one state), the masks after the tail equal but for at most
+# K4_MAX_TIES pairs
+K4_LADDER_TIE_RTOL, K4_X_ATOL, K4_C_RTOL, K4_IDEPTH_RTOL, K4_IDEPTH_ATOL = (
+    1e-5, 2e-4, 1e-4, 2e-3, 1e-4)
+# flops of csrc/ba.cu's ba_linearize, per sample as one lane does them: a
+# requested sample's projection and bounds test 32; a valid sample's FEJ
+# centre 35, (I, dx, dy) 37, residual and weights 15, Jacobians 190, its
+# terms of the pair's 149 sums 430 and of the point's 106 sums 290 (1000;
+# the transported residual of mode fej 45 more); in energy_only a valid
+# sample's (I, dx, dy), residual, weight and energy 60
+K4_FLOPS_REQ, K4_FLOPS_VALID, K4_FLOPS_FEJ, K4_FLOPS_ENERGY = 32, 1000, 45, 60
 
 
 def _card_line() -> str:
@@ -481,12 +533,15 @@ def drive_bench(cfg, ds, frames, dev, sync, probe=None) -> dict:
 
 
 def _clone(x):
-    """A copy of a call's arguments: tensors cloned, (named) tuples and
-    lists rebuilt, anything else as it is."""
+    """A copy of a call's arguments: tensors cloned, numpy arrays copied,
+    (named) tuples and lists rebuilt, anything else as it is."""
+    import numpy as np
     import torch
 
     if isinstance(x, torch.Tensor):
         return x.clone()
+    if isinstance(x, np.ndarray):
+        return x.copy()
     if isinstance(x, tuple):
         items = [_clone(a) for a in x]
         return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
@@ -503,23 +558,35 @@ class BenchProbe:
     ``frame_step._trace_core``: the system's real tracker ref, pyramid,
     hypotheses, bank and state. From frame ``act_after`` + 1 on it keeps
     the arguments (and keywords) of the first ``act_keep`` calls of
-    ``trace.activate_candidates_device`` (one a keyframe). Over the frames
+    ``trace.activate_candidates_device`` (one a keyframe), of the first
+    ``act_keep`` calls of ``ba.solve.run_ba`` and of the first call of
+    ``ba.marginal.marginalize_points`` that folds points. Over the frames
     of ``profile`` it runs ``torch.profiler`` with the pyramid build, the
     tracker, the trace and the keyframe path each under a
     ``record_function`` label, and inside the keyframe path the
     activation, the BA, the finish (marginalization) and the seeding and
-    tracker-ref rebuild; it keeps the host-clock wall time."""
+    tracker-ref rebuild, and inside the BA its parts (``BA_LABELS``); it
+    keeps the host-clock wall time."""
 
     LABELS = ("pyramid", "tracker", "trace", "keyframe", "kf_activate", "run_ba", "finish_kf",
               "seed_ref")
     KF_STAGES = LABELS[4:]
+    # inside run_ba: each assemble (the pair tables inside it), the damped
+    # solve, the step, the state deltas of the energy and the loop
+    BA_LABELS = ("ba_assemble", "ba_precompute", "ba_solve_core", "ba_apply_step",
+                 "ba_state_delta")
+    # the hand kernels, by the name torch.profiler gives their device events
+    KERNELS = {"pyramid": ("pyramid_kernel",), "track_level": ("track_levels_kernel",),
+               "trace": ("trace_bank_kernel",), "activate": ("activate_bank_kernel",),
+               "ba_assemble": ("ba_linearize_kernel", "ba_reduce_kernel"),
+               "ba_linearize": ("ba_linearize_kernel",), "ba_reduce": ("ba_reduce_kernel",)}
 
     def __init__(self, capture, profile, act_after: int = ACT_AFTER, act_keep: int = ACT_KEEP):
         self.capture, self.profile = tuple(capture), tuple(profile)
         self.act_after, self.act_keep = act_after, act_keep
-        self.inputs, self.activations = {}, []
+        self.inputs, self.activations, self.ba_calls, self.marg_calls = {}, [], [], []
         self.prof, self.wall_s, self._t0 = None, 0.0, 0.0
-        self._undo, self._act_undo = [], None
+        self._undo, self._keepers = [], {}
 
     def _patch(self, obj, name, wrap):
         orig = getattr(obj, name)
@@ -531,31 +598,44 @@ class BenchProbe:
             obj, name, orig = self._undo.pop()
             setattr(obj, name, orig)
 
-    def _keep_activations(self, i: int) -> None:
-        from ldso_tpu_torch import trace as trace_mod
-
-        if self._act_undo is not None and len(self.activations) >= self.act_keep:
-            trace_mod.activate_candidates_device = self._act_undo
-            self._act_undo = None
-        elif (self._act_undo is None and i > self.act_after
-              and len(self.activations) < self.act_keep):
-            orig = self._act_undo = trace_mod.activate_candidates_device
+    def _keep(self, i: int, obj, name: str, store: list, n: int, wanted=None) -> None:
+        """From frame act_after + 1 on, keep (cloned) the arguments and
+        keywords of the first ``n`` calls of ``obj.name`` (those for which
+        ``wanted(*args)`` holds), then unpatch."""
+        key = (id(obj), name)
+        orig = self._keepers.get(key)
+        if orig is not None and len(store) >= n:
+            setattr(obj, name, orig)
+            del self._keepers[key]
+        elif orig is None and i > self.act_after and len(store) < n:
+            orig = self._keepers[key] = getattr(obj, name)
 
             def kept(*args, **kw):
-                if len(self.activations) < self.act_keep:
-                    self.activations.append((_clone(args), dict(kw)))
+                if len(store) < n and (wanted is None or wanted(*args)):
+                    store.append((_clone(args), _clone(dict(kw))))
                 return orig(*args, **kw)
 
-            trace_mod.activate_candidates_device = kept
+            setattr(obj, name, kept)
+
+    def _keepers_step(self, i: int) -> None:
+        import numpy as np
+
+        from ldso_tpu_torch import trace as trace_mod
+        from ldso_tpu_torch.ba import marginal, solve
+
+        self._keep(i, trace_mod, "activate_candidates_device", self.activations, self.act_keep)
+        self._keep(i, solve, "run_ba", self.ba_calls, self.act_keep)
+        self._keep(i, marginal, "marginalize_points", self.marg_calls, 1,
+                   lambda win, mask, *rest: bool(np.asarray(mask).any()))
 
     def before(self, i: int) -> None:
         import torch
 
         from ldso_tpu_torch import frame_step, lifecycle, tracker
-        from ldso_tpu_torch.ba import solve
+        from ldso_tpu_torch.ba import residuals, solve
         from ldso_tpu_torch.system import FullSystem
 
-        self._keep_activations(i)
+        self._keepers_step(i)
         if i in self.capture:
             rec = self.inputs.setdefault(i, {})
 
@@ -588,7 +668,12 @@ class BenchProbe:
                                     (FullSystem, "_finish_kf", "finish_kf"),
                                     (FullSystem, "_dispatch_seed", "seed_ref"),
                                     (FullSystem, "_seed_new_kf", "seed_ref"),
-                                    (FullSystem, "_update_tracker_ref", "seed_ref")):
+                                    (FullSystem, "_update_tracker_ref", "seed_ref"),
+                                    (solve, "assemble", "ba_assemble"),
+                                    (residuals, "precompute_pairs", "ba_precompute"),
+                                    (solve, "_solve_core", "ba_solve_core"),
+                                    (solve, "apply_step", "ba_apply_step"),
+                                    (solve, "state_delta", "ba_state_delta")):
                 self._patch(obj, attr, label(name))
             act = torch.profiler.ProfilerActivity
             self.prof = torch.profiler.profile(activities=[act.CPU, act.CUDA])
@@ -596,7 +681,7 @@ class BenchProbe:
             self._t0 = time.perf_counter()
 
     def after(self, i: int) -> None:
-        self._keep_activations(i)
+        self._keepers_step(i)
         if self.profile and i == self.profile[-1]:
             self.wall_s = time.perf_counter() - self._t0
             self.prof.__exit__(None, None, None)
@@ -605,25 +690,78 @@ class BenchProbe:
             self._restore()
 
     def summary(self) -> dict:
-        """Launches per frame, the device's busy share of the window, and
-        host and device ms per frame of each label (and per call)."""
+        """Launches per frame, the device's busy share of the window, host
+        and device ms per frame of each label (and per call), the hand
+        kernels' device ms per frame (``kernels``) and the split of
+        ``run_ba`` (``ba_split``)."""
         from torch.autograd import DeviceType
 
         events = self.prof.events()
-        dev = [e for e in events if e.device_type == DeviceType.CUDA
-               and e.name not in self.LABELS]
+        labels = self.LABELS + self.BA_LABELS
+        dev = [e for e in events if e.device_type == DeviceType.CUDA and e.name not in labels]
         n = len(self.profile)
         busy_us = sum(e.device_time_total for e in dev)
         out = dict(frames=n, launches_per_frame=len(dev) / n, wall_ms=1e3 * self.wall_s / n,
                    busy=busy_us / (1e6 * self.wall_s) if dev else None)
-        for name in self.LABELS:
+        for name in labels:
             ev = [e for e in events if e.name == name and e.device_type == DeviceType.CPU]
             host = sum(e.cpu_time_total for e in ev) / 1e3
             device = sum(e.device_time_total for e in ev) / 1e3
             out[name] = dict(calls=len(ev), host_ms=host / n, device_ms=device / n,
                              host_ms_call=host / max(len(ev), 1),
                              device_ms_call=device / max(len(ev), 1))
+        out["kernels"] = {k: sum(e.device_time_total for e in dev
+                                 if any(sym in e.name for sym in syms)) / (1e3 * n)
+                          for k, syms in self.KERNELS.items()}
+        out["ba_split"] = ba_split(events, out, labels)
         return out
+
+
+def ba_split(events, out: dict, labels) -> dict:
+    """``run_ba``'s host ms per call, split by what it runs: the labelled
+    parts (``BenchProbe.BA_LABELS``; the pair tables inside the assembly),
+    the host syncs made directly in ``run_ba`` (``aten::item``: the
+    energies' and the tail's ``float()`` / ``int()``), its copies between
+    host and card (the outermost ``aten::to``: the prior's upload and the
+    tail's ``.cpu()`` readbacks), and the rest (the energy expressions, the
+    tail's masks, the loop-invariant set-up). Device ms per call: the torch
+    ops under the label, and the hand kernel's own device time (its
+    launches go through ctypes, outside every label)."""
+    from torch.autograd import DeviceType
+
+    def owner(e):
+        """The nearest labelled ancestor's name, and whether an ``aten::to``
+        lies between (so that only the outermost copy counts)."""
+        nested, p = False, e.cpu_parent
+        while p is not None and p.name not in labels:
+            nested |= p.name in ("aten::to", "aten::_to_copy")
+            p = p.cpu_parent
+        return (p.name if p is not None else None), nested
+
+    calls = max(out["run_ba"]["calls"], 1)
+    syncs = copies = 0.0
+    for e in events:
+        if e.device_type != DeviceType.CPU or e.name not in ("aten::item", "aten::to",
+                                                              "aten::_to_copy"):
+            continue
+        name, nested = owner(e)
+        if name != "run_ba" or nested:
+            continue
+        if e.name == "aten::item":
+            syncs += e.cpu_time_total
+        elif e.cpu_parent is None or e.cpu_parent.name != "aten::to":
+            copies += e.cpu_time_total
+    n = out["frames"]
+    part = {k: out[k]["host_ms"] * n / calls for k in BenchProbe.BA_LABELS}
+    split = dict(calls=out["run_ba"]["calls"], host_ms=out["run_ba"]["host_ms"] * n / calls,
+                 device_ms=out["run_ba"]["device_ms"] * n / calls,
+                 kernel_device_ms=out["kernels"]["ba_assemble"] * n / calls,
+                 assemble_calls=out["ba_assemble"]["calls"] / calls, syncs=syncs / 1e3 / calls,
+                 copies=copies / 1e3 / calls, **part)
+    split["rest"] = split["host_ms"] - sum(part[k] for k in BenchProbe.BA_LABELS
+                                           if k != "ba_precompute") - split["syncs"] \
+        - split["copies"]
+    return split
 
 
 def _device_events(fn) -> tuple:
@@ -1419,6 +1557,385 @@ def check_activate(name: str, call, time_it: bool = False) -> dict:
     return rec
 
 
+@contextlib.contextmanager
+def count_ba():
+    """Within the block, count the BA evaluations the drives ask for (on
+    whichever thread): for each ``ba.solve.run_ba`` call its first
+    assembly and one a LM iteration (1 + ``len(stats.lam_ladder)``), and one
+    for each ``ba.marginal.marginalize_points`` call that folds points.
+    Yields a one-item list holding the count."""
+    import threading
+
+    import numpy as np
+
+    from ldso_tpu_torch.ba import marginal, solve
+
+    made, lock = [0], threading.Lock()
+    run_ba, fold = solve.run_ba, marginal.marginalize_points
+
+    def counted_ba(*args, **kw):
+        out = run_ba(*args, **kw)
+        with lock:
+            made[0] += 1 + len(out[1].lam_ladder)
+        return out
+
+    def counted_fold(win, mask, *args, **kw):
+        if np.asarray(mask).any():
+            with lock:
+                made[0] += 1
+        return fold(win, mask, *args, **kw)
+
+    solve.run_ba, marginal.marginalize_points = counted_ba, counted_fold
+    try:
+        yield made
+    finally:
+        solve.run_ba, marginal.marginalize_points = run_ba, fold
+
+
+def _check_ba_launches(phase: str, launched: int, evals: int) -> None:
+    """PER_EVALUATION BA kernel launches for each evaluation ``count_ba``
+    counted, and at least one evaluation."""
+    from ldso_tpu_torch.kernels import ba as kba
+
+    if evals < 1 or launched != kba.PER_EVALUATION * evals:
+        raise RuntimeError(f"{phase}: BA kernel launched {launched} times for {evals} "
+                           f"evaluations, expected {kba.PER_EVALUATION * evals}")
+
+
+@contextlib.contextmanager
+def plain_ba():
+    """Within the block, ``ba.residuals.assemble`` and ``energy_only`` run
+    their plain versions also on the card: the yardstick of the kernel,
+    never the port's path."""
+    from ldso_tpu_torch.ba import residuals
+
+    kernels = residuals._assemble_kernel, residuals._energy_only_kernel
+    residuals._assemble_kernel = residuals.assemble_torch
+    residuals._energy_only_kernel = residuals.energy_only_torch
+    try:
+        yield
+    finally:
+        residuals._assemble_kernel, residuals._energy_only_kernel = kernels
+
+
+def marg_window(args):
+    """The window ``marginalize_points`` assembles (mode fej) from its
+    arguments: the points it folds."""
+    import torch
+
+    win, mask = args[0], args[1]
+    return win._replace(p_valid=win.p_valid & torch.as_tensor(mask, device=win.x.device))
+
+
+def ba_samples(win) -> tuple:
+    """The plain version's projections of ``win``: every sample's current
+    pixel and test (``residuals._project_current``: uvk [P, F, 8, 2],
+    ok_pat [P, F, 8]) and each pair's FEJ centre in pixels [P, F, 2] with
+    its z test, as ``assemble_torch`` makes them."""
+    import torch
+
+    from ldso_tpu_torch.ba import residuals as res
+
+    pre = res.precompute_pairs(win)
+    host = win.p_host.long()
+    uvk, ok_pat = res._project_current(win, pre, host)
+    xc = res._normalized_dirs(win.p_uv, win.c_zero)
+    X0 = torch.einsum("pfij,pj->pfi", pre.R_fej[host], xc) \
+        + pre.t_fej[host] * win.p_idepth_zero[:, None, None]
+    ok0 = X0[..., 2] > 1e-6
+    dre = 1.0 / torch.where(ok0, X0[..., 2], torch.ones_like(X0[..., 2]))
+    c0 = win.c_zero
+    uv0 = torch.stack([c0[0] * (X0[..., 0] * dre) + c0[2], c0[1] * (X0[..., 1] * dre) + c0[3]],
+                      dim=-1)
+    return uvk, ok_pat, uv0, ok0
+
+
+def ba_tie_pairs(win, mode: str):
+    """bool [P, F]: the requested pairs whose validity is within reach of
+    rounding in the plain version's own numbers: a sample within
+    TRACE_TIE_PX of the in-bounds border (at border 2) or, unless ``mode``
+    is "energy", the FEJ centre."""
+    uvk, _, uv0, _ = ba_samples(win)
+    h, w = win.images.shape[1], win.images.shape[2]
+    requested = win.res_mask & win.p_valid[:, None] & win.frame_valid[None, :]
+    tie = _near_border(uvk, w, h).any(-1)
+    if mode != "energy":
+        tie |= _near_border(uv0, w, h)
+    return tie & requested
+
+
+def ba_assemble_bound_ms(win, mode: str, valid_pair=None) -> tuple:
+    """The least time the card could take for one evaluation of ``win``
+    (``mode`` "active", "fej" or "energy") as its data needs it: the larger
+    of its bytes over the memory rate and its operations over the float32
+    rate. Bytes: each point's inputs once (uv 8, the inverse depth 4 and in
+    modes active and fej its FEJ copy 4, color 32, weight 32, host 4, valid
+    1, res_mask F), the slot tables, the intrinsics and the state delta of
+    mode fej; the distinct texels of the valid samples at 12 B (I, dx, dy);
+    each output once (H, b, H_xd, H_dd, b_d, e_pair, the masks, the energy,
+    the count; energy_only the energy and count). Operations (csrc/ba.cu,
+    counted per sample as a lane does them): K4_FLOPS_REQ each requested
+    sample, K4_FLOPS_VALID (+ K4_FLOPS_FEJ in mode fej) or K4_FLOPS_ENERGY
+    each valid one. ``valid_pair`` is the plain version's (computed if not
+    given). Returns (ms, bound_by, bytes, flops)."""
+    import torch
+
+    from ldso_tpu_torch.ba import residuals as res
+
+    F, h, w = win.images.shape[0], win.images.shape[1], win.images.shape[2]
+    P, D = win.p_uv.shape[0], 8 * win.images.shape[0] + 4
+    uvk, ok_pat, _, _ = ba_samples(win)
+    requested = win.res_mask & win.p_valid[:, None] & win.frame_valid[None, :]
+    if mode == "energy":
+        valid = ok_pat & requested[..., None]
+    else:
+        if valid_pair is None:
+            valid_pair = res.assemble_torch(win, mode=mode).valid_pair
+        valid = ok_pat & valid_pair[..., None]
+    f = torch.nonzero(valid)[:, 1]
+    uv = uvk[valid]
+    u0 = uv[:, 0].floor().long().clamp(0, w - 1)
+    v0 = uv[:, 1].floor().long().clamp(0, h - 1)
+    u1, v1 = (u0 + 1).clamp(max=w - 1), (v0 + 1).clamp(max=h - 1)
+    base = f * (h * w)
+    n_texels = int(torch.cat([base + v0 * w + u0, base + v0 * w + u1, base + v1 * w + u0,
+                              base + v1 * w + u1]).unique().numel())
+    n_req, n_valid = 8 * int(requested.sum()), int(valid.sum())
+    energy = mode == "energy"
+    n_bytes = (P * (8 + 4 + (0 if energy else 4) + 32 + 32 + 4 + 1 + F)
+               + F * F * 62 * 4 + F * 3 * 4 + F + 32 + (4 * D if mode == "fej" else 0)
+               + 12 * n_texels
+               + (12 if energy else 4 * (D * D + D + 1) + 8 + P * (4 * D + 8 + 6 * F)))
+    flops = n_req * K4_FLOPS_REQ + n_valid * (
+        K4_FLOPS_ENERGY if energy else K4_FLOPS_VALID + (K4_FLOPS_FEJ if mode == "fej" else 0))
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
+    return (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
+            n_bytes, flops)
+
+
+def ba_compare(out_k, out_p, mode: str, win) -> dict:
+    """Hold one evaluation of the kernel (``out_k``) to the plain one
+    (``out_p``), both ``BASystem`` (or (energy, count) in mode "energy"), on
+    ``win``. An entry within K4_RTOL |plain| + K4_ATOL_FRAC x the
+    Cauchy-Schwarz bound on the sum of its absolute terms, from the plain
+    outputs: sqrt(H_ii H_jj) for H_ij, sqrt(H_ii S) for b_i,
+    sqrt(H_ii H_dd[p]) for H_xd[p, i], sqrt(H_dd[p] S_p) for b_d[p], where
+    S >= the sum of w r^2 over the residuals: the energy (S_p: the point's
+    e_pair) in mode active, and in mode fej 2 (energy + the quadratic form
+    of H, H_xd and H_dd in the state and inverse-depth deltas), since there
+    the residual is r - J delta; H_dd and e_pair (sums of non-negative
+    terms) against their array's largest; the energy within K4_E_RTOL;
+    masks and count equal. Returns numpy bools of what held: ``all``,
+    ``pairs`` [P, F] (valid_pair and oob_pair equal, e_pair within bounds),
+    ``points`` [P] (H_dd, b_d and the H_xd row within bounds), the worst
+    entry of each output (error / bound, index, kernel, plain) and the
+    fields each of the first points that part fails in."""
+    import numpy as np
+
+    E_k, E_p = float(out_k[0] if mode == "energy" else out_k.energy), \
+        float(out_p[0] if mode == "energy" else out_p.energy)
+    n_k, n_p = (int(out_k[1]), int(out_p[1])) if mode == "energy" else (
+        int(out_k.num_res), int(out_p.num_res))
+    e_rel = abs(E_k - E_p) / max(abs(E_p), 1e-30)
+    rec = dict(e_energy=e_rel, num_res=(n_k, n_p))
+    ok = e_rel <= K4_E_RTOL and n_k == n_p
+    if mode == "energy":
+        rec.update(all=ok, max_abs_err=0.0, used=0.0)
+        return rec
+    from ldso_tpu_torch.core.window import state_delta
+
+    k = {f: getattr(out_k, f).cpu().numpy().astype(np.float64) for f in out_k._fields}
+    p = {f: getattr(out_p, f).cpu().numpy().astype(np.float64) for f in out_p._fields}
+    d_ii = np.abs(np.diagonal(p["H"]))
+    hdd = np.abs(p["H_dd"])
+    S, S_p = E_p, p["e_pair"].sum(1)
+    if mode == "fej":
+        delta = state_delta(win).cpu().numpy().astype(np.float64)
+        dd = (win.p_idepth - win.p_idepth_zero).cpu().numpy().astype(np.float64)
+        q = delta @ p["H"] @ delta + 2.0 * delta @ (p["H_xd"].T @ dd) + hdd @ (dd * dd)
+        S, S_p = 2.0 * (E_p + q), 2.0 * (S_p + q)
+    scales = {"H": np.sqrt(np.outer(d_ii, d_ii)), "b": np.sqrt(d_ii * max(S, 0.0)),
+              "H_xd": np.sqrt(np.outer(hdd, d_ii)), "b_d": np.sqrt(hdd * np.maximum(S_p, 0.0)),
+              "H_dd": np.full_like(hdd, hdd.max()),
+              "e_pair": np.full_like(p["e_pair"], np.abs(p["e_pair"]).max())}
+    held, worst = {}, {}
+    for f, sc in scales.items():
+        bound = K4_RTOL * np.abs(p[f]) + K4_ATOL_FRAC * sc
+        err = np.abs(k[f] - p[f])
+        held[f] = err <= bound
+        ratio = np.divide(err, bound, out=np.zeros_like(bound), where=bound > 0)
+        ratio[(bound == 0) & (err > 0)] = np.inf
+        i = np.unravel_index(int(np.argmax(ratio)), ratio.shape)
+        worst[f] = (float(ratio[i]), tuple(int(j) for j in i), float(k[f][i]), float(p[f][i]))
+    masks = (k["valid_pair"] == p["valid_pair"]) & (k["oob_pair"] == p["oob_pair"])
+    points = held["H_xd"].all(1) & held["H_dd"] & held["b_d"]
+    pairs = masks & held["e_pair"]
+    parted = np.nonzero(~points | ~pairs.all(1))[0][:5]
+    fails = {int(i): [f for f, h in (("H_xd", held["H_xd"][i].all()), ("H_dd", held["H_dd"][i]),
+                                     ("b_d", held["b_d"][i]), ("masks", masks[i].all()),
+                                     ("e_pair", held["e_pair"][i].all())) if not h]
+             for i in parted}
+    rec.update(all=bool(ok and held["H"].all() and held["b"].all() and points.all()
+                        and pairs.all()),
+               pairs=pairs, points=points, worst=worst, fails=fails,
+               used=max(w[0] for w in worst.values()),
+               max_abs_err=max(float(np.abs(k[f] - p[f]).max()) for f in ("H", "b", "H_xd")))
+    return rec
+
+
+def check_ba(name: str, win, cfg, mode: str, time_it: bool = False) -> dict:
+    """Hold the BA kernel against its plain version on one window (a BA
+    window the drive built): ``assemble`` in ``mode`` "active" or "fej", or
+    ``energy_only`` for "energy" (``ba_compare``'s bounds). Two launches
+    must agree bit for bit. If the two versions part, the pairs that part
+    must be ties (``ba_tie_pairs``; in mode energy, which has no per-pair
+    output, the count may differ by at most K4_MAX_TIES and every tie pair
+    is dropped), at most K4_MAX_TIES of them: they are dropped from
+    res_mask and both versions run again, held as above. Returns a record;
+    with ``time_it`` also the kernel's device ms (its two launches), the
+    whole call's ms, the plain version's ms and the bound."""
+    import numpy as np
+    import torch
+
+    from ldso_tpu_torch.ba import residuals as res
+    from ldso_tpu_torch.kernels import ba as kba
+
+    kw = dict(huber_th=cfg.ba.huber_th, outlier_sum=cfg.ba.outlier_th_sum_component)
+    F = win.num_frames
+
+    def kernel(w):
+        return res.energy_only(w, **kw) if mode == "energy" else res.assemble(w, mode=mode, **kw)
+
+    def plain(w):
+        return (res.energy_only_torch(w, **kw) if mode == "energy"
+                else res.assemble_torch(w, mode=mode, **kw))
+
+    n0 = kba.LAUNCHES
+    out_k, again = kernel(win), kernel(win)
+    if kba.LAUNCHES != n0 + 2 * kba.PER_EVALUATION:
+        raise RuntimeError(f"BA kernel on {name}: two evaluations counted "
+                           f"{kba.LAUNCHES - n0} launches")
+    for i, (a, b) in enumerate(zip(out_k, again)):
+        if not _bits_equal(a, b):
+            raise RuntimeError(f"BA kernel on {name}: two launches differ in output {i}")
+    out_p = plain(win)
+    torch.cuda.synchronize()
+    rec = ba_compare(out_k, out_p, mode, win)
+    tie = ba_tie_pairs(win, mode).cpu().numpy()
+    parted = np.zeros_like(tie)
+    if not rec["all"]:
+        if mode == "energy":
+            n_k, n_p = rec["num_res"]
+            if abs(n_k - n_p) > K4_MAX_TIES or not tie.any():
+                raise RuntimeError(f"BA kernel (energy_only) disagrees on {name}: energy rel "
+                                   f"{rec['e_energy']:.3g} (bound {K4_E_RTOL}), count "
+                                   f"{n_k} / {n_p}, {int(tie.sum())} tie pairs")
+            parted = tie
+        else:
+            pair_bad, point_bad = ~rec["pairs"], ~rec["points"]
+            bad = (pair_bad & ~tie).any(1) | (point_bad & ~tie.any(1))
+            if bad.any():
+                pts = np.nonzero(bad)[0][:5].tolist()
+                raise RuntimeError(
+                    f"BA kernel ({mode}) disagrees on {name} at {int(bad.sum())} points that "
+                    f"hold no tie, e.g. points {pts} (failing in {rec['fails']}; energy rel "
+                    f"{rec['e_energy']:.3g}, count {rec['num_res']}, error / bound, at, kernel, "
+                    f"plain: {rec['worst']})")
+            parted = pair_bad | (point_bad[:, None] & tie)
+            if not parted.any():
+                raise RuntimeError(f"BA kernel ({mode}) disagrees on {name} in H, b or the "
+                                   f"energy with every point held: energy rel "
+                                   f"{rec['e_energy']:.3g}, count {rec['num_res']}, error / "
+                                   f"bound, at, kernel, plain: {rec['worst']}")
+            if parted.sum() > K4_MAX_TIES:
+                raise RuntimeError(f"BA kernel on {name}: {int(parted.sum())} pairs parted at "
+                                   f"a tie, more than {K4_MAX_TIES}")
+        keep = torch.as_tensor(~parted, device=win.x.device)
+        win = win._replace(res_mask=win.res_mask & keep)
+        out_k, out_p = kernel(win), plain(win)
+        rec = ba_compare(out_k, out_p, mode, win)
+        if not rec["all"]:
+            raise RuntimeError(f"BA kernel ({mode}) disagrees on {name} with the "
+                               f"{int(parted.sum())} tie pairs dropped: energy rel "
+                               f"{rec['e_energy']:.3g}, count {rec['num_res']}, error / bound, "
+                               f"at, kernel, plain: {rec.get('worst')}")
+    out = dict(mode=mode, points=int(win.p_valid.sum()),
+               hosts=int(torch.unique(win.p_host[win.p_valid]).numel()),
+               slots=int(win.frame_valid.sum()), num_res=rec["num_res"][1],
+               ties_found=int(tie.sum()), parted=int(parted.sum()), e_energy=rec["e_energy"],
+               used=rec["used"], max_abs_err=rec["max_abs_err"])
+    if time_it:
+        wc = res._contiguous(win)
+        pair, slot = res.ba_slot_tables(wc)
+        delta = res.state_delta(wc) if mode == "fej" else None
+        if mode == "energy":
+            out["ms"] = _device_ms(lambda: kba.energy_only_cuda(wc, pair, slot, **kw))
+        else:
+            out["ms"] = _device_ms(lambda: kba.assemble_cuda(wc, pair, slot, delta=delta, **kw))
+        out["call_ms"] = _time_ms(lambda: kernel(win), reps=5, inner=5)
+        out["plain_ms"] = _time_ms(lambda: plain(win), reps=5, inner=3)
+        out["bound_ms"], out["bound_by"], out["bytes"], out["flops"] = ba_assemble_bound_ms(
+            win, mode, None if mode == "energy" else out_p.valid_pair)
+    return out
+
+
+def compare_run_ba(name: str, w_k, s_k, w_p, s_p) -> dict:
+    """Hold a ``run_ba`` of the kernel (window ``w_k``, stats ``s_k``) to a
+    plain one from the same arguments: the same lambda ladder, unless they
+    part at a tie (a step whose trial energy in the plain run is within
+    K4_LADDER_TIE_RTOL of the energy it is tested against: reported, and
+    the states are not compared); then the states by the bounds above.
+    Returns the numbers compared."""
+    import numpy as np
+
+    lk, lp = list(s_k.lam_ladder), list(s_p.lam_ladder)
+    rec = dict(iterations=(s_k.iterations, s_p.iterations), ladder=len(lp))
+    if lk != lp:
+        part = next((i for i, (a, b) in enumerate(zip(lk, lp)) if a != b), min(len(lk), len(lp)))
+        E, rho = s_p.energy_initial, []
+        for Et in s_p.energy_ladder:
+            rho.append(abs(Et - E) / max(abs(E), 1e-30))
+            if np.isfinite(Et) and Et < E:
+                E = Et
+        # the decision at the parting step (or, where one run stopped, the last common one)
+        at = min(part, len(lp) - 1)
+        if not rho[at] < K4_LADDER_TIE_RTOL:
+            raise RuntimeError(f"run_ba on {name}: the lambda ladders part at step {part} "
+                               f"({lk} / {lp}), where the energy change is {rho[at]:.3g}, "
+                               f"no tie (< {K4_LADDER_TIE_RTOL})")
+        rec.update(tie_at=part, tie_rho=rho[at])
+        return rec
+    e_x = float(np.abs(w_k.x.cpu().numpy() - w_p.x.cpu().numpy()).max())
+    c_k, c_p = w_k.c.cpu().numpy(), w_p.c.cpu().numpy()
+    e_c = float((np.abs(c_k - c_p) / np.abs(c_p)).max())
+    d_k, d_p = w_k.p_idepth.cpu().numpy(), w_p.p_idepth.cpu().numpy()
+    held_d = np.abs(d_k - d_p) <= K4_IDEPTH_ATOL + K4_IDEPTH_RTOL * np.abs(d_p)
+    masks = int((s_k.res_mask != s_p.res_mask).sum() + (s_k.junk != s_p.junk).sum())
+    rec.update(e_x=e_x, e_c=e_c,
+               e_idepth=float((np.abs(d_k - d_p) / np.maximum(np.abs(d_p), 1e-12)).max()),
+               masks_parted=masks,
+               e_final=abs(s_k.energy_final - s_p.energy_final) / max(abs(s_p.energy_final), 1e-30))
+    if not (e_x <= K4_X_ATOL and e_c <= K4_C_RTOL and held_d.all() and masks <= K4_MAX_TIES):
+        raise RuntimeError(f"run_ba on {name}: the same ladder {lp} but the states part: "
+                           f"max|dx| {e_x:.3g} (bound {K4_X_ATOL}), c rel {e_c:.3g} "
+                           f"({K4_C_RTOL}), idepth {int((~held_d).sum())} beyond atol "
+                           f"{K4_IDEPTH_ATOL} + rtol {K4_IDEPTH_RTOL}, {masks} mask entries "
+                           f"parted (at most {K4_MAX_TIES})")
+    return rec
+
+
+def check_run_ba(name: str, args, kw) -> dict:
+    """A whole ``run_ba`` on kept arguments (``args``, ``kw``) through the
+    kernel and through the plain version (``plain_ba``), each from its own
+    copy, held by ``compare_run_ba``."""
+    from ldso_tpu_torch.ba import solve
+
+    w_k, s_k = solve.run_ba(*_clone(args), **kw)
+    with plain_ba():
+        w_p, s_p = solve.run_ba(*_clone(args), **kw)
+    return compare_run_ba(name, w_k, s_k, w_p, s_p)
+
+
 def _pctl(xs, q: float) -> float:
     xs = sorted(xs)
     return xs[min(len(xs) - 1, int(round(q * (len(xs) - 1))))]
@@ -1535,7 +2052,9 @@ def _mode_line(name: str, r: dict) -> str:
             f"kf_shed_events {r['kf_shed_events']}, staleness waits {r['kf_stale_waits']}, "
             f"ATE {r['ate']:.4f}% (bound "
             f"{r['bound']:.3f}%), pyramid launches {r['launches']} (expected "
-            f"{r['launches_expected']}), tracker launches {r['track_launches']}{extra}")
+            f"{r['launches_expected']}), tracker launches {r['track_launches']}"
+            + (f", BA kernel launches {r['ba_launches']}" if "ba_launches" in r else "")
+            + extra)
 
 
 def _drive_loop(cfg, ds, frames, dev, sync, loop_on: bool) -> dict:
@@ -1820,6 +2339,7 @@ def distributed_rank(out_dir: str, spec: dict) -> None:
     from ldso_tpu_torch.distributed import mesh as dmesh
     from ldso_tpu_torch.distributed import sharded_ba, sharded_pgo
     from ldso_tpu_torch.eval import toys
+    from ldso_tpu_torch.kernels import ba as ba_kernel
     from ldso_tpu_torch.kernels import pallas_pyramid
 
     dev = torch.device(spec["device"])
@@ -1932,6 +2452,8 @@ def distributed_rank(out_dir: str, spec: dict) -> None:
             res.update(dryrun=[e["ba"], e["pgo"], e["block_pgo"]],
                        dryrun_s=time.perf_counter() - t,
                        dryrun_launches=pallas_pyramid.LAUNCHES)
+    # every sharded BA step above is one evaluation on this rank's shard
+    res["ba_launches"] = ba_kernel.LAUNCHES
     np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **res)
 
 
@@ -1985,7 +2507,10 @@ def single_process_refs(win, cfg, spec: dict, sync) -> dict:
     s_vec = torch.as_tensor(scale_vector(F, cfg.scales), device=dev)
     fixed = torch.as_tensor(fix_mask(F, 0), device=dev)
 
+    evals = [0]
+
     def step():
+        evals[0] += 1
         sys = assemble(win, huber_th=hub, outlier_sum=osum)
         dx, dd = _solve_core(sys.H, sys.b, sys.H_xd, sys.H_dd, sys.b_d,
                              torch.zeros((D, D), device=dev), z, state_delta(win),
@@ -1996,6 +2521,7 @@ def single_process_refs(win, cfg, spec: dict, sync) -> dict:
     w_ref = step()
     refs = dict(win=w_ref, E=float(assemble(w_ref, huber_th=hub, outlier_sum=osum).energy),
                 ba_ms=_timed_ms(step, sync, reps=5))
+    refs["evals"] = evals[0] + 1
     f32 = dict(dtype=torch.float32, device=dev)
     graphs = [(f"pgo{seed}", toys.sim3_circle_graph(24, seed), lm, cg)
               for seed, lm, cg in spec["circle"]]
@@ -2147,6 +2673,7 @@ def drive_distributed(dev, work_dir: str) -> dict:
     from ldso_tpu_torch import convert
     from ldso_tpu_torch.config import preset
     from ldso_tpu_torch.eval.toys import make_synthetic_window
+    from ldso_tpu_torch.kernels import ba as ba_kernel
     from ldso_tpu_torch.kernels import pallas_pyramid
 
     sync = torch.cuda.synchronize
@@ -2164,6 +2691,7 @@ def drive_distributed(dev, work_dir: str) -> dict:
     np.savez(path, **convert.to_numpy(win))
     spec = dict(DIST_SPEC, device="cuda", window=path)
     t = time.perf_counter()
+    ba_kernel.reset_launches()
     refs = single_process_refs(win, cfg, spec, sync)
     t_refs = time.perf_counter() - t
     t = time.perf_counter()
@@ -2177,13 +2705,28 @@ def drive_distributed(dev, work_dir: str) -> dict:
                      timeout_s=DIST_TIMEOUT_S)
     t_nccl = time.perf_counter() - t
     chk1 = check_distributed(nccl, refs, win, cfg, spec1)
+    # the BA kernel: the references' evaluations and one in each check here;
+    # in every rank one a sharded step (ba_steps, the 2x2 mesh's, the dry run's)
+    ba_parent = ba_kernel.LAUNCHES
+    if ba_parent != ba_kernel.PER_EVALUATION * (refs["evals"] + 2):
+        raise RuntimeError(f"BA kernel launched {ba_parent} times for the references and "
+                           f"checks of phase 8, expected "
+                           f"{ba_kernel.PER_EVALUATION * (refs['evals'] + 2)}")
+    for rs, sp in ((gloo, spec), (nccl, spec1)):
+        steps = sp["ba_steps"] + (0 if sp.get("ba_only") else 1 + int(bool(sp["dryrun"])))
+        got = [int(r["ba_launches"]) for r in rs]
+        if got != [ba_kernel.PER_EVALUATION * steps] * len(rs):
+            raise RuntimeError(f"BA kernel launches by rank {got}, expected "
+                               f"{ba_kernel.PER_EVALUATION * steps} each ({steps} sharded steps)")
+    ba_launches = ba_parent + sum(int(r["ba_launches"]) for r in gloo + nccl)
     # every rank's dry run builds its 6 toy frames with the kernel, 1 level
     launches = launches_toy + sum(int(r["dryrun_launches"]) for r in gloo)
     if launches != DIST_FRAMES + DIST_RANKS * 6:
         raise RuntimeError(f"pyramid kernel launched {launches} times in phase 8, expected "
                            f"{DIST_FRAMES + DIST_RANKS * 6}")
     return dict(gloo=gloo[0], nccl=nccl[0], refs=refs, chk=chk, chk1=chk1, launches=launches,
-                t_toy=t_toy, t_refs=t_refs, t_gloo=t_gloo, t_nccl=t_nccl)
+                ba_launches=ba_launches, t_toy=t_toy, t_refs=t_refs, t_gloo=t_gloo,
+                t_nccl=t_nccl)
 
 
 def _dist_lines(d: dict, card: str) -> list:
@@ -2244,6 +2787,7 @@ def main() -> int:
 
     # ---- 1. device
     import ldso_tpu_torch  # noqa: F401  (sets the float32 precision flags)
+    from ldso_tpu_torch.kernels import ba as ba_kernel
     from ldso_tpu_torch.kernels import cuda_build, pallas_pyramid, track_level
     from ldso_tpu_torch.kernels import trace as trace_kernel
     from ldso_tpu_torch.kernels.pyramid import build_pyramid_torch
@@ -2272,7 +2816,7 @@ def main() -> int:
     n_workers = min(8, os.cpu_count() or 1)
     with concurrent.futures.ProcessPoolExecutor(
             max_workers=n_workers, mp_context=multiprocessing.get_context("spawn")) as renders, \
-            concurrent.futures.ThreadPoolExecutor(max_workers=7) as pool:
+            concurrent.futures.ThreadPoolExecutor(max_workers=9) as pool:
         # the dataset first: its frames cost the most (rendered larger,
         # warped through the lens, PNG-encoded)
         futures = [
@@ -2287,9 +2831,11 @@ def main() -> int:
                   pool.submit(cuda_build.ptxas_report, track_level.SOURCE),
                   pool.submit(cuda_build.ptxas_report, trace_kernel.SOURCE, (),
                               trace_kernel.NO_FMAD),
+                  pool.submit(ba_kernel.build),
+                  pool.submit(cuda_build.ptxas_report, ba_kernel.SOURCE, (), ba_kernel.NO_FMAD),
                   pool.submit(native.available)]
-        lib, lib_track, lib_phases, lib_trace, ptxas, ptxas_trace, has_native = (
-            b.result() for b in builds)
+        (lib, lib_track, lib_phases, lib_trace, ptxas, ptxas_trace, lib_ba, ptxas_ba,
+         has_native) = (b.result() for b in builds)
         reason = ""
         if not has_native:
             lines = (native.unavailable_reason() or "no reason given").strip().splitlines()
@@ -2298,7 +2844,8 @@ def main() -> int:
         print(f"build: {os.path.relpath(lib, root)}, {os.path.relpath(lib_track, root)} "
               f"({ptxas_kernels(ptxas)}), {os.path.relpath(lib_phases, root)} (the tracker "
               f"kernel with -DTRACK_LEVEL_PHASES), {os.path.relpath(lib_trace, root)} "
-              f"(-fmad=false; {ptxas_kernels(ptxas_trace)}); native image loader "
+              f"(-fmad=false; {ptxas_kernels(ptxas_trace)}), {os.path.relpath(lib_ba, root)} "
+              f"(-fmad=false; {ptxas_kernels(ptxas_ba)}); native image loader "
               f"{'built' if has_native else 'NOT built'}{reason}; frames will be decoded by "
               f"'{datasets.active_decoder()}'; {time.perf_counter() - t0:.2f} s", flush=True)
         (tum_root, tum_gt), (ds, frames), (lds, lframes) = (f.result() for f in futures)
@@ -2375,18 +2922,21 @@ def main() -> int:
     pallas_pyramid.reset_launches()
     track_level.reset_launches()
     trace_kernel.reset_launches()
+    ba_kernel.reset_launches()
     probe = BenchProbe(TRACK_CAPTURE, TRACK_PROFILE)
-    with count_keyframes() as kf_main:
+    with count_keyframes() as kf_main, count_ba() as ba_main_evals:
         main = drive_bench(preset("default"), ds, frames, dev, sync=sync, probe=probe)
     launches_main = pallas_pyramid.LAUNCHES
     track_main = track_level.LAUNCHES
     trace_main, act_main = trace_kernel.LAUNCHES_TRACE, trace_kernel.LAUNCHES_ACTIVATE
+    ba_main = ba_kernel.LAUNCHES
     # one launch per frame: a bootstrap frame builds one pyramid too
     if launches_main != len(frames) or main["n_tracked"] == 0:
         raise RuntimeError(f"pyramid kernel launched {launches_main} times for "
                            f"{len(frames)} frames ({main['n_tracked']} tracked)")
     _check_track_launches("phase 4", track_main, main["n_tracked"])
     _check_trace_launches("phase 4", trace_main, act_main, main["n_tracked"], kf_main[0])
+    _check_ba_launches("phase 4", ba_main, ba_main_evals[0])
     print(f"main path: {len(frames)} frames ({main['n_init']} to initialize, "
           f"{main['n_tracked']} tracked, 0 lost), {main['n_kf']} KFs ({main['n_marg']} "
           f"marginalized), {main['n_corner_act']} corner-seeded activations, ATE "
@@ -2397,8 +2947,9 @@ def main() -> int:
           f"out; host clock, synchronized per frame), pyramid launches {launches_main}, "
           f"tracker launches {track_main} ({TRACK_LAUNCHES} per tracked frame), trace launches "
           f"{trace_main} (1 per tracked frame), activation launches {act_main} (1 per "
-          f"keyframe built, {kf_main[0]}), phase wall time "
-          f"{time.perf_counter() - t_phase:.1f} s | {card}", flush=True)
+          f"keyframe built, {kf_main[0]}), BA kernel launches {ba_main} "
+          f"({ba_kernel.PER_EVALUATION} per evaluation, {ba_main_evals[0]} evaluations), phase "
+          f"wall time {time.perf_counter() - t_phase:.1f} s | {card}", flush=True)
     prof = probe.summary()
     split = ", ".join(f"{k} {prof[k]['host_ms']:.2f} ms host / {prof[k]['device_ms']:.3f} ms "
                       f"device ({prof[k]['calls']} calls)" for k in BenchProbe.LABELS)
@@ -2414,6 +2965,17 @@ def main() -> int:
               f" / {prof[k]['device_ms_call'] * prof[k]['calls'] / max(prof['keyframe']['calls'], 1):.3f}"
               f" ms ({prof[k]['calls']} calls)" for k in BenchProbe.KF_STAGES)
           + f" (the kernels' own device time is not under a label) | {card}", flush=True)
+    bs = prof["ba_split"]
+    print(f"run_ba by part (same profile, per call, {bs['calls']} calls, "
+          f"{bs['assemble_calls']:.2f} assemblies a call): {bs['host_ms']:.2f} ms host / "
+          f"{bs['device_ms']:.3f} ms device (torch ops) + {bs['kernel_device_ms']:.4f} ms of "
+          f"the BA kernel; host: assemble {bs['ba_assemble']:.2f} (its pair tables "
+          f"{bs['ba_precompute']:.2f}), _solve_core {bs['ba_solve_core']:.2f}, apply_step "
+          f"{bs['ba_apply_step']:.2f}, state_delta {bs['ba_state_delta']:.2f}, host syncs "
+          f"{bs['syncs']:.2f}, copies {bs['copies']:.2f}, the rest {bs['rest']:.2f} ms; hand "
+          f"kernels' device ms a frame " + ", ".join(f"{k} {v:.4f}"
+                                                      for k, v in prof["kernels"].items())
+          + f" | {card}", flush=True)
 
     # ---- 4b. the tracker kernel on the main path's real inputs
     t_phase = time.perf_counter()
@@ -2559,13 +3121,69 @@ def main() -> int:
           f"device, plain {n_act_p}, {ms_act_p:.3f} ms (torch.profiler); phase wall time "
           f"{time.perf_counter() - t_phase:.1f} s | {card}", flush=True)
 
+    # ---- 4d. the BA linearization kernel on the main path's real windows
+    t_phase = time.perf_counter()
+    from ldso_tpu_torch.ba import solve as ba_solve
+
+    if len(probe.ba_calls) < ACT_KEEP or not probe.marg_calls:
+        raise RuntimeError(f"phase 4 kept {len(probe.ba_calls)} run_ba calls of {ACT_KEEP} and "
+                           f"{len(probe.marg_calls)} point folds of 1")
+    ba_recs, run_recs = [], []
+    for j, (args, kw) in enumerate(probe.ba_calls):
+        name = f"run_ba {j + 1} after bench frame {ACT_AFTER}"
+        for mode in ("active", "fej", "energy"):
+            r = check_ba(name, args[0], args[3], mode, time_it=(j == 0 and mode == "active"))
+            ba_recs.append(r)
+            print(f"kernel ba_assemble vs plain [{name}, mode {mode}: {r['points']} points on "
+                  f"{r['hosts']} host slots, {r['slots']} slots, {r['num_res']} residuals]: "
+                  f"energy rel {r['e_energy']:.3g}, error / bound up to {r['used']:.3g} "
+                  f"(max|err| {r['max_abs_err']:.3g}), pairs parted at a tie {r['parted']} "
+                  f"(ties found {r['ties_found']}; at most {K4_MAX_TIES}), bitwise equal in a "
+                  f"second launch (bounds: rtol {K4_RTOL} + {K4_ATOL_FRAC} x each entry's "
+                  f"Cauchy-Schwarz bound on its terms, energy rel {K4_E_RTOL}, masks and count "
+                  f"equal) | {card}",
+                  flush=True)
+        rr = check_run_ba(name, args, kw)
+        run_recs.append(rr)
+        print(f"run_ba kernel vs plain [{name}]: iterations {rr['iterations']}, "
+              + (f"ladders part at a tie at step {rr['tie_at']} (energy change "
+                 f"{rr['tie_rho']:.3g} < {K4_LADDER_TIE_RTOL})" if "tie_at" in rr else
+                 f"the same lambda ladder of {rr['ladder']} steps, max|dx| {rr['e_x']:.3g} "
+                 f"(bound {K4_X_ATOL}), c rel {rr['e_c']:.3g} ({K4_C_RTOL}), idepth rel "
+                 f"{rr['e_idepth']:.3g} (atol {K4_IDEPTH_ATOL} + rtol {K4_IDEPTH_RTOL}), mask "
+                 f"entries parted {rr['masks_parted']}, final energy rel {rr['e_final']:.3g}")
+              + f" | {card}", flush=True)
+    m_args, _ = probe.marg_calls[0]
+    r = check_ba("marginalize_points", marg_window(m_args), m_args[4], "fej")
+    ba_recs.append(r)
+    print(f"kernel ba_assemble vs plain [marginalize_points, mode fej: {r['points']} points "
+          f"folded]: energy rel {r['e_energy']:.3g}, error / bound up to {r['used']:.3g}, "
+          f"pairs parted at a tie {r['parted']}, bitwise equal in a second launch | {card}",
+          flush=True)
+    br = ba_recs[0]
+    b_args, b_kw = probe.ba_calls[0]
+    n_ba, ms_ba = _device_events(lambda: ba_solve.run_ba(*_clone(b_args), **b_kw))
+    with plain_ba():
+        n_ba_p, ms_ba_p = _device_events(lambda: ba_solve.run_ba(*_clone(b_args), **b_kw))
+    print(f"kernel ba_assemble timing [run_ba 1 after bench frame {ACT_AFTER}, mode active, "
+          f"two launches]: device {br['ms']:.4f} ms (queued behind a spin kernel), the whole "
+          f"assemble call {br['call_ms']:.4f} ms (pair tables included), plain assemble_torch "
+          f"{br['plain_ms']:.4f} ms (CUDA events over back-to-back calls), bound "
+          f"{br['bound_ms']:.6f} ms by {br['bound_by']} ({br['bytes']} B, {br['flops']} flops); "
+          f"one run_ba call {n_ba} device kernels / copies, {ms_ba:.3f} ms device, plain "
+          f"{n_ba_p}, {ms_ba_p:.3f} ms (torch.profiler); phase wall time "
+          f"{time.perf_counter() - t_phase:.1f} s | {card}", flush=True)
+
     # ---- 5. loop closure on the loop sequence
     t_phase = time.perf_counter()
     pallas_pyramid.reset_launches()
     track_level.reset_launches()
     trace_kernel.reset_launches()
-    with count_keyframes() as kf_loop:
+    ba_kernel.reset_launches()
+    with count_keyframes() as kf_loop, count_ba() as ba_loop_evals:
         loop = drive_loop_pair(preset("default"), lds, lframes, dev, sync=sync)
+    ba_loop = ba_kernel.LAUNCHES
+    _check_ba_launches("phase 5", ba_loop, ba_loop_evals[0])
     launches_loop = pallas_pyramid.LAUNCHES
     track_loop = track_level.LAUNCHES
     trace_loop, act_loop = trace_kernel.LAUNCHES_TRACE, trace_kernel.LAUNCHES_ACTIVATE
@@ -2590,7 +3208,8 @@ def main() -> int:
           f"-> kf {loop['reloc']['kf_id']} with {loop['reloc']['n_inliers']} inliers, "
           f"center offset {loop['reloc']['d_est']:.4f} (bound {loop['reloc']['bound']:.4f}); "
           f"pyramid launches {launches_loop}, tracker launches {track_loop}, trace launches "
-          f"{trace_loop}, activation launches {act_loop}; phase wall time "
+          f"{trace_loop}, activation launches {act_loop}, BA kernel launches {ba_loop}; phase "
+          f"wall time "
           f"{time.perf_counter() - t_phase:.1f} s | {card}", flush=True)
 
     # ---- 6. async modes, free-running
@@ -2606,8 +3225,11 @@ def main() -> int:
         pallas_pyramid.reset_launches()
         track_level.reset_launches()
         trace_kernel.reset_launches()
-        with count_keyframes() as kf_async:
+        ba_kernel.reset_launches()
+        with count_keyframes() as kf_async, count_ba() as ba_async_evals:
             r = drive_async(preset("default"), *seq, dev, sync, ate_sync, **kw)
+        r["ba_launches"] = ba_kernel.LAUNCHES
+        _check_ba_launches(name, r["ba_launches"], ba_async_evals[0])
         r["launches"] = pallas_pyramid.LAUNCHES
         r["track_launches"] = track_level.LAUNCHES
         r["trace_launches"] = trace_kernel.LAUNCHES_TRACE
@@ -2625,6 +3247,7 @@ def main() -> int:
     track_async = sum(r["track_launches"] for r in drives.values())
     trace_async = sum(r["trace_launches"] for r in drives.values())
     act_async = sum(r["act_launches"] for r in drives.values())
+    ba_async = sum(r["ba_launches"] for r in drives.values())
     print(f"async modes (free-running, host clock over the whole drive with its drain; "
           f"latency = add_frame to pose available) | {card}", flush=True)
     print(f"  sync, bench sequence (phase 4): {len(frames)} frames, "
@@ -2649,8 +3272,11 @@ def main() -> int:
     pallas_pyramid.reset_launches()
     track_level.reset_launches()
     trace_kernel.reset_launches()
-    with count_keyframes() as kf_cli:
+    ba_kernel.reset_launches()
+    with count_keyframes() as kf_cli, count_ba() as ba_cli_evals:
         cli_run = drive_cli(tum_root, tum_gt, out_dir)
+    ba_cli = ba_kernel.LAUNCHES
+    _check_ba_launches("phase 7 (CLI)", ba_cli, ba_cli_evals[0])
     launches_cli = pallas_pyramid.LAUNCHES
     track_cli = track_level.LAUNCHES
     trace_cli, act_cli = trace_kernel.LAUNCHES_TRACE, trace_kernel.LAUNCHES_ACTIVATE
@@ -2663,8 +3289,11 @@ def main() -> int:
     pallas_pyramid.reset_launches()
     track_level.reset_launches()
     trace_kernel.reset_launches()
-    with count_keyframes() as kf_resume:
+    ba_kernel.reset_launches()
+    with count_keyframes() as kf_resume, count_ba() as ba_resume_evals:
         resume = drive_resume(preset("default"), tum_root, out_dir, dev, sync)
+    ba_resume = ba_kernel.LAUNCHES
+    _check_ba_launches("phase 7 (resume)", ba_resume, ba_resume_evals[0])
     launches_resume = pallas_pyramid.LAUNCHES
     track_resume = track_level.LAUNCHES
     trace_resume = trace_kernel.LAUNCHES_TRACE
@@ -2687,7 +3316,7 @@ def main() -> int:
           f"points, {cs['fps']} frames/s (the CLI's own clock, all frames; phase 4 "
           f"{main['fps_all']:.3f}), whole call {cli_run['wall']:.1f} s, pyramid launches "
           f"{launches_cli}, tracker launches {track_cli}, trace launches {trace_cli}, "
-          f"activation launches {act_cli} | {card}", flush=True)
+          f"activation launches {act_cli}, BA kernel launches {ba_cli} | {card}", flush=True)
     print(f"  reader, per frame: decode {rt['decode_ms']:.3f} ms (host, zip read + PNG, no "
           f"prefetch), response + vignette + remap {rt['device_ms']:.4f} ms (device, CUDA "
           f"events), the two copies {rt['copy_ms']:.3f} ms (host clock), whole get_image "
@@ -2699,7 +3328,7 @@ def main() -> int:
           f"uninterrupted run {resume['gap']:.3g} (bound {RESUME_ATOL}), KFs "
           f"{resume['n_kf'][0]} / {resume['n_kf'][1]}, pyramid launches {launches_resume}, "
           f"tracker launches {track_resume}, trace launches {trace_resume}, activation "
-          f"launches {act_resume}; "
+          f"launches {act_resume}, BA kernel launches {ba_resume}; "
           f"phase wall time {time.perf_counter() - t_phase:.1f} s | {card}", flush=True)
 
     # ---- 8. the distributed solvers: ranks on the one card
@@ -2760,7 +3389,20 @@ def main() -> int:
         "ms": ar["ms"], "ms_is": f"device, one launch on keyframe 1 after bench frame "
         f"{ACT_AFTER}", "plain_ms": ar["plain_ms"], "bound_ms": ar["bound_ms"],
         "bound_by": ar["bound_by"], "library_ms": None, "launches_per_keyframe": 1,
-        "call_kernels": n_act, "call_kernels_plain": n_act_p}]}), flush=True)
+        "call_kernels": n_act, "call_kernels_plain": n_act_p}, {
+        "name": "ba_assemble", "route": "cuda", "source": "ldso_tpu_torch/csrc/ba.cu",
+        "replaces": "ldso_tpu/ba/residuals.py:153",
+        "launches": (ba_main + ba_loop + ba_async + ba_cli + ba_resume
+                     + dist_run["ba_launches"]),
+        "launches_per_evaluation": ba_kernel.PER_EVALUATION,
+        "max_abs_err": max(r["max_abs_err"] for r in ba_recs),
+        "ties": sum(r["parted"] for r in ba_recs),
+        "ms": br["ms"], "ms_is": f"device, the two launches of one assemble (mode active) on "
+        f"run_ba 1 after bench frame {ACT_AFTER}", "call_ms": br["call_ms"],
+        "plain_ms": br["plain_ms"], "bound_ms": br["bound_ms"], "bound_by": br["bound_by"],
+        "library_ms": None, "run_ba_kernels": n_ba, "run_ba_kernels_plain": n_ba_p,
+        "run_ba_host_ms": bs["host_ms"], "run_ba_device_ms": bs["device_ms"],
+        "run_ba_kernel_device_ms": bs["kernel_device_ms"]}]}), flush=True)
     print(f"card: {_card_line()}", flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

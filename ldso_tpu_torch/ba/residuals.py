@@ -16,8 +16,11 @@ First-Estimate-Jacobian semantics (as the reference):
 State layout of the reduced system (D = 8F+4): columns [8·s : 8·s+8] =
 frame slot s: [xi(6), a, b]; columns [8F:] = intrinsics [fx fy cx cy].
 
-``assemble`` is a torch composition; it is a candidate for a hand
-kernel once the card's numbers show it binding.
+``assemble`` and ``energy_only`` dispatch on the device of the window:
+the plain versions ``assemble_torch`` and ``energy_only_torch`` (torch
+compositions) for CPU tensors, the CUDA kernel (``kernels/ba.py``, two
+launches an evaluation, the pair tables of ``ba_slot_tables`` made here in
+torch) for CUDA tensors; any other device raises.
 """
 
 from __future__ import annotations
@@ -160,7 +163,69 @@ def assemble(win: Window, huber_th: float = 9.0, outlier_sum: float = 2500.0,
     mode="active": b uses current residuals (the BA path).
     mode="fej":    b uses residuals transported to the linearization point
                    r₀ = r − J·Δstate (the marginalization path).
-    """
+
+    ``assemble_torch`` for CPU tensors, the CUDA kernel for CUDA tensors."""
+    if mode not in ("active", "fej"):
+        raise ValueError(f"unknown assemble mode {mode!r}")
+    dev = win.images.device
+    if dev.type == "cpu":
+        return assemble_torch(win, huber_th, outlier_sum, mode)
+    if dev.type == "cuda":
+        return _assemble_kernel(win, huber_th, outlier_sum, mode)
+    raise ValueError(f"no BA assembly for device {dev}")
+
+
+def energy_only(win: Window, huber_th: float = 9.0, outlier_sum: float = 2500.0):
+    """Total Huber energy and residual count at the current state (no
+    Jacobians): ``energy_only_torch`` for CPU tensors, the CUDA kernel for
+    CUDA tensors."""
+    dev = win.images.device
+    if dev.type == "cpu":
+        return energy_only_torch(win, huber_th, outlier_sum)
+    if dev.type == "cuda":
+        return _energy_only_kernel(win, huber_th, outlier_sum)
+    raise ValueError(f"no BA energy for device {dev}")
+
+
+def ba_slot_tables(win: Window):
+    """``precompute_pairs`` as the kernel reads it: the pair table
+    [F, F, 62] ([host, target]: R_cur 9, t_cur 3, R_fej 9, t_fej 3, adj_fej
+    36, alpha_cur, alpha_fej) and the slot table [F, 3] (b_host_cur,
+    b_host_fej, b_tgt_cur), the values the plain version gathers per point."""
+    pre = precompute_pairs(win)
+    F = win.num_frames
+    pair = torch.cat([pre.R_cur.reshape(F, F, 9), pre.t_cur, pre.R_fej.reshape(F, F, 9),
+                      pre.t_fej, pre.adj_fej.reshape(F, F, 36), pre.alpha_cur[..., None],
+                      pre.alpha_fej[..., None]], dim=-1)
+    slot = torch.stack([pre.b_host_cur, pre.b_host_fej, pre.b_tgt_cur], dim=-1)
+    return pair, slot
+
+
+def _contiguous(win: Window) -> Window:
+    return Window(*(t.contiguous() for t in win))
+
+
+def _assemble_kernel(win: Window, huber_th: float, outlier_sum: float, mode: str) -> BASystem:
+    from ldso_tpu_torch.kernels.ba import assemble_cuda
+
+    win = _contiguous(win)
+    pair, slot = ba_slot_tables(win)
+    delta = state_delta(win) if mode == "fej" else None
+    return assemble_cuda(win, pair, slot, huber_th, outlier_sum, delta=delta)
+
+
+def _energy_only_kernel(win: Window, huber_th: float, outlier_sum: float):
+    from ldso_tpu_torch.kernels.ba import energy_only_cuda
+
+    win = _contiguous(win)
+    pair, slot = ba_slot_tables(win)
+    return energy_only_cuda(win, pair, slot, huber_th, outlier_sum)
+
+
+def assemble_torch(win: Window, huber_th: float = 9.0, outlier_sum: float = 2500.0,
+                   mode: str = "active") -> BASystem:
+    """``assemble``'s plain version (a torch composition): linearize all
+    residuals and assemble the Gauss-Newton system in ``mode``."""
     F, P = win.num_frames, win.num_points
     dev = win.x.device
     H_img, W_img = win.images.shape[1], win.images.shape[2]
@@ -275,9 +340,10 @@ def assemble(win: Window, huber_th: float = 9.0, outlier_sum: float = 2500.0,
     )
 
 
-def energy_only(win: Window, huber_th: float = 9.0, outlier_sum: float = 2500.0):
-    """Total Huber energy and residual count at the current state (no
-    Jacobians) — the accept/reject evaluation of a trial GN step."""
+def energy_only_torch(win: Window, huber_th: float = 9.0, outlier_sum: float = 2500.0):
+    """``energy_only``'s plain version: total Huber energy and residual
+    count at the current state (no Jacobians) — the accept/reject
+    evaluation of a trial GN step."""
     pre = precompute_pairs(win)
     host = win.p_host.long()
     uvk, ok_pat = _project_current(win, pre, host)

@@ -165,6 +165,7 @@ class BAStats(NamedTuple):
     c: object = None                  # np [4] post-BA intrinsics
     junk: object = None               # np bool [P] rows retired by the BA tail
     lam_ladder: object = None         # λ after each iteration (host floats)
+    energy_ladder: object = None      # the trial energy of each iteration (host floats)
 
 
 def run_ba(win: Window, HM: np.ndarray, bM: np.ndarray, cfg: LdsoConfig,
@@ -198,7 +199,7 @@ def run_ba(win: Window, HM: np.ndarray, bM: np.ndarray, cfg: LdsoConfig,
     E = E0
     lam = np.float32(cfg.ba.lambda_initial)
     n_steps = 0
-    ladder = []
+    ladder, trials = [], []
     for it in range(cfg.ba.max_iterations):
         dx, dd = _solve_core(sys.H, sys.b, sys.H_xd, sys.H_dd, sys.b_d,
                              HM_t, bM_t, state_delta(win), prior_d, s_vec, fixed,
@@ -215,6 +216,7 @@ def run_ba(win: Window, HM: np.ndarray, bM: np.ndarray, cfg: LdsoConfig,
         else:
             lam = np.float32(lam * np.float32(4.0))
         ladder.append(float(lam))
+        trials.append(E_try)
         if (ok and step < cfg.ba.step_break_th and it + 1 >= cfg.ba.min_iterations) \
                 or lam > 1e2:
             break
@@ -249,7 +251,8 @@ def run_ba(win: Window, HM: np.ndarray, bM: np.ndarray, cfg: LdsoConfig,
         p_valid=win.p_valid.cpu().numpy(), p_host=win.p_host.cpu().numpy(),
         p_idepth=win.p_idepth.cpu().numpy(), res_mask=win.res_mask.cpu().numpy(),
         p_uv=win.p_uv.cpu().numpy(), p_color=win.p_color[:, 4].cpu().numpy(),
-        c=win.c.cpu().numpy(), junk=junk.cpu().numpy(), lam_ladder=ladder)
+        c=win.c.cpu().numpy(), junk=junk.cpu().numpy(), lam_ladder=ladder,
+        energy_ladder=trials)
     win = win._replace(p_valid=win.p_valid & ~junk,
                        res_mask=win.res_mask & ~junk[:, None])
     return win, stats

@@ -74,7 +74,9 @@
 //     tie, so their result does not depend on the reduction order); the
 //     refine puts the 8 pattern points on lanes 0-7 and sums them by
 //     shuffles in the tree order torch's reduction kernel uses for 8
-//     values ((x0 + x1) + (x2 + x3)) + ((x4 + x5) + (x6 + x7));
+//     values ((x0 + x4) + (x2 + x6)) + ((x1 + x5) + (x3 + x7)) (read off
+//     the plain version's GN steps: this order gives every row's step of
+//     a bench frame bit for bit, the order (x0 + x1) + ... half of them);
 //   * the activation puts 4 target slots x 8 pattern points on the 32
 //     lanes (3 passes for F = 10), sums each slot's 8 points by the same
 //     tree and adds the slots' sums in slot order;
@@ -233,12 +235,12 @@ __device__ __forceinline__ void sample3(const float* __restrict__ img, int W, in
 }
 
 // torch.sum over S <= 8 values of a row: torch's reduction kernel gives a
-// row of S values last_pow2(S) threads, thread t summing x[t] + x[t + bw],
-// then a shuffle tree with offsets 1, 2, 4
+// row of S values bw = last_pow2(S - 1) threads, thread t summing
+// x[t] + x[t + bw], then a halving shuffle tree (offsets bw / 2, ..., 1)
 __device__ __forceinline__ float torch_sum(const float* x, int S) {
   if (S >= 8)
-    return ((x[0] + x[1]) + (x[2] + x[3])) + ((x[4] + x[5]) + (x[6] + x[7]));
-  if (S >= 4) return (x[0] + x[1]) + (x[2] + x[3]);
+    return ((x[0] + x[4]) + (x[2] + x[6])) + ((x[1] + x[5]) + (x[3] + x[7]));
+  if (S >= 4) return (x[0] + x[2]) + (x[1] + x[3]);
   if (S == 3) return (x[0] + x[2]) + x[1];
   if (S == 2) return x[0] + x[1];
   return x[0];
@@ -246,9 +248,9 @@ __device__ __forceinline__ float torch_sum(const float* x, int S) {
 
 // the same tree over lanes 0-7 of each group of 8: lane 8g holds its sum
 __device__ __forceinline__ float tree8(float v) {
-  v += __shfl_down_sync(kFull, v, 1, 8);
-  v += __shfl_down_sync(kFull, v, 2, 8);
   v += __shfl_down_sync(kFull, v, 4, 8);
+  v += __shfl_down_sync(kFull, v, 2, 8);
+  v += __shfl_down_sync(kFull, v, 1, 8);
   return v;
 }
 

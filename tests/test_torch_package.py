@@ -25,7 +25,7 @@ def test_import_pulls_in_no_jax():
     code = ("import sys; import ldso_tpu_torch, ldso_tpu_torch.system, "
             "ldso_tpu_torch.convert, ldso_tpu_torch.kernels.pallas_pyramid, "
             "ldso_tpu_torch.kernels.track_level, ldso_tpu_torch.kernels.cuda_build, "
-            "ldso_tpu_torch.kernels.trace, "
+            "ldso_tpu_torch.kernels.trace, ldso_tpu_torch.kernels.ba, "
             "ldso_tpu_torch.loop.orb, ldso_tpu_torch.loop.match, "
             "ldso_tpu_torch.loop.bow, ldso_tpu_torch.loop.sim3, "
             "ldso_tpu_torch.loop.posegraph, ldso_tpu_torch.loop.closing, "
