@@ -40,14 +40,16 @@ Phases, one result line each (any failure raises and exits non-zero):
      activations; the tracker kernel launched 2 times per tracked frame
      (the coarse levels of every hypothesis, then the winner's fine
      levels), the trace kernel once per tracked frame and the activation
-     kernel once per keyframe built, and the BA kernel twice an evaluation
+     kernel once per keyframe built, and the BA kernel once an evaluation
      (``count_ba``), as in every later drive; frames 40..59 traced with
      torch.profiler (device kernels per frame, the device's busy share,
      host and device ms of the pyramid, the tracker, the trace and the
      keyframe path, and of the keyframe path's stages per keyframe:
      activation, BA, the finish with its marginalization, the seeding and
      tracker-ref rebuild; ``run_ba``'s host time split by part,
-     ``ba_split``; each hand kernel's device ms a frame), the tracking and
+     ``ba_split``, with the calls of ``precompute_pairs``, the pair tables
+     in torch, that the kernel's path no longer makes; each hand kernel's
+     device ms a frame), the tracking and
      trace inputs of frames 20, 60 and 100 kept, and the activation and
      ``run_ba`` inputs of the first two keyframes after frame 20 and one
      point fold's;
@@ -81,12 +83,15 @@ Phases, one result line each (any failure raises and exits non-zero):
      modes active and fej and ``energy_only`` on the two ``run_ba`` windows,
      and mode fej on the point fold's, against the plain versions
      (``check_ba``: H, b, H_xd, H_dd, b_d, e_pair, the energy, the masks
-     and the count, the tie rule, and bit for bit against a second launch),
-     each whole ``run_ba`` against the plain one (``check_run_ba``: the
-     same lambda ladder unless it parts at an energy tie, then the state);
-     on the first window the two launches' device ms beside the bound this
-     window's data needs, the whole call's and the plain version's ms, and
-     the device kernels of one ``run_ba`` call of each version;
+     and the count, the tie rule, bit for bit against a second launch, and
+     the pair tables the kernel makes against ``ba_slot_tables``,
+     ``ba_table_compare``), each whole ``run_ba`` against the plain one
+     (``check_run_ba``: the same lambda ladder unless it parts at an
+     energy tie, then the state); on the first window the launch's device
+     ms beside the bound this window's data needs, the whole call's ms and
+     host ms and the plain version's ms, and the device kernels of one
+     ``run_ba`` call of each version (none of them ``precompute_pairs``'
+     on the kernel's path);
   5. loop closure: the loop sequence of the JAX package's
      ``bench.py::bench_loop_closure`` (``preset("default")``, 320x240, 240
      frames, seed 5, out_and_back, uint8) driven twice, loop closure off
@@ -150,7 +155,7 @@ Phases, one result line each (any failure raises and exits non-zero):
      ``optimize_pose_graph``, solved twice with bitwise-equal results (its
      scatter-adds sum in a fixed order); ``graft_entry.dryrun_multichip``;
      replicated results bitwise equal on every rank; the BA kernel launched
-     twice a sharded step in every rank and twice an evaluation of the
+     once a sharded step in every rank and once an evaluation of the
      references. A rank that fails, or has not ended within
      ``DIST_TIMEOUT_S``, fails the phase.
 Then a JSON line of per-kernel results (pyramid, track_level, trace,
@@ -297,12 +302,14 @@ K4_RTOL, K4_ATOL_FRAC, K4_E_RTOL, K4_MAX_TIES = 1e-4, 1e-5, 1e-5, 4
 # K4_MAX_TIES pairs
 K4_LADDER_TIE_RTOL, K4_X_ATOL, K4_C_RTOL, K4_IDEPTH_RTOL, K4_IDEPTH_ATOL = (
     1e-5, 2e-4, 1e-4, 2e-3, 1e-4)
-# flops of csrc/ba.cu's ba_linearize, per sample as one lane does them: a
+# flops of csrc/ba.cu's ba_kernel, per sample as one lane does them: a
 # requested sample's projection and bounds test 32; a valid sample's FEJ
 # centre 35, (I, dx, dy) 37, residual and weights 15, Jacobians 190, its
-# terms of the pair's 149 sums 430 and of the point's 106 sums 290 (1000;
+# terms of the pair's 149 words 430 and of the point's 106 words 290 (1000;
 # the transported residual of mode fej 45 more); in energy_only a valid
-# sample's (I, dx, dy), residual, weight and energy 60
+# sample's (I, dx, dy), residual, weight and energy 60. The pair-table
+# entry each lane of a slot group makes again (~130) is not work the
+# evaluation needs: the [F, F] tables are ~150 flops an entry
 K4_FLOPS_REQ, K4_FLOPS_VALID, K4_FLOPS_FEJ, K4_FLOPS_ENERGY = 32, 1000, 45, 60
 
 
@@ -363,6 +370,25 @@ def _time_ms(fn, reps: int = 20, inner: int = 20) -> float:
         b.record()
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b) / inner)
+    return statistics.median(times)
+
+
+def _host_ms(fn, n: int = 50) -> float:
+    """Median host-clock ms of one call of ``fn`` (no synchronize: what the
+    call costs the calling thread), after warm-up; the stream is drained
+    every 10 calls."""
+    import torch
+
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for i in range(n):
+        t = time.perf_counter()
+        fn()
+        times.append(1e3 * (time.perf_counter() - t))
+        if i % 10 == 9:
+            torch.cuda.synchronize()
     return statistics.median(times)
 
 
@@ -571,15 +597,18 @@ class BenchProbe:
     LABELS = ("pyramid", "tracker", "trace", "keyframe", "kf_activate", "run_ba", "finish_kf",
               "seed_ref")
     KF_STAGES = LABELS[4:]
-    # inside run_ba: each assemble (the pair tables inside it), the damped
+    # inside run_ba: each assemble, the pair tables in torch (only the plain
+    # version makes them there: 0 calls on the kernel's path), the damped
     # solve, the step, the state deltas of the energy and the loop
     BA_LABELS = ("ba_assemble", "ba_precompute", "ba_solve_core", "ba_apply_step",
                  "ba_state_delta")
     # the hand kernels, by the name torch.profiler gives their device events
+    # (ba_assemble: this source's, and the two of the earlier two-launch
+    # version, which a parent checkout driven with these instruments
+    # launches)
     KERNELS = {"pyramid": ("pyramid_kernel",), "track_level": ("track_levels_kernel",),
                "trace": ("trace_bank_kernel",), "activate": ("activate_bank_kernel",),
-               "ba_assemble": ("ba_linearize_kernel", "ba_reduce_kernel"),
-               "ba_linearize": ("ba_linearize_kernel",), "ba_reduce": ("ba_reduce_kernel",)}
+               "ba_assemble": ("ba_kernel", "ba_linearize_kernel", "ba_reduce_kernel")}
 
     def __init__(self, capture, profile, act_after: int = ACT_AFTER, act_keep: int = ACT_KEEP):
         self.capture, self.profile = tuple(capture), tuple(profile)
@@ -719,7 +748,8 @@ class BenchProbe:
 
 def ba_split(events, out: dict, labels) -> dict:
     """``run_ba``'s host ms per call, split by what it runs: the labelled
-    parts (``BenchProbe.BA_LABELS``; the pair tables inside the assembly),
+    parts (``BenchProbe.BA_LABELS``; ``precompute_pairs``, the pair tables
+    in torch, is called only by the plain version: ``precompute_calls``),
     the host syncs made directly in ``run_ba`` (``aten::item``: the
     energies' and the tail's ``float()`` / ``int()``), its copies between
     host and card (the outermost ``aten::to``: the prior's upload and the
@@ -756,7 +786,8 @@ def ba_split(events, out: dict, labels) -> dict:
     split = dict(calls=out["run_ba"]["calls"], host_ms=out["run_ba"]["host_ms"] * n / calls,
                  device_ms=out["run_ba"]["device_ms"] * n / calls,
                  kernel_device_ms=out["kernels"]["ba_assemble"] * n / calls,
-                 assemble_calls=out["ba_assemble"]["calls"] / calls, syncs=syncs / 1e3 / calls,
+                 assemble_calls=out["ba_assemble"]["calls"] / calls,
+                 precompute_calls=out["ba_precompute"]["calls"] / calls, syncs=syncs / 1e3 / calls,
                  copies=copies / 1e3 / calls, **part)
     split["rest"] = split["host_ms"] - sum(part[k] for k in BenchProbe.BA_LABELS
                                            if k != "ba_precompute") - split["syncs"] \
@@ -1592,6 +1623,31 @@ def count_ba():
         solve.run_ba, marginal.marginalize_points = run_ba, fold
 
 
+@contextlib.contextmanager
+def count_calls(obj, name: str):
+    """Within the block, count the calls of ``obj.name`` (a one-item list)."""
+    made, fn = [0], getattr(obj, name)
+
+    def counted(*args, **kw):
+        made[0] += 1
+        return fn(*args, **kw)
+
+    setattr(obj, name, counted)
+    try:
+        yield made
+    finally:
+        setattr(obj, name, fn)
+
+
+def _table_text(t: dict) -> str:
+    """``ba_table_compare``'s record as text."""
+    if not t["entries"] and t["slot_equal"]:
+        return f"pair tables bit for bit ({t['of']} entries)"
+    return (f"pair tables: {t['entries']} of {t['of']} entries differ (max {t['max_ulps']} ulps; "
+            + ", ".join(f"{k} {n} at up to {u} ulps" for k, (n, u) in t["fields"].items())
+            + f"), slot table {'equal' if t['slot_equal'] else 'DIFFERS'}")
+
+
 def _check_ba_launches(phase: str, launched: int, evals: int) -> None:
     """PER_EVALUATION BA kernel launches for each evaluation ``count_ba``
     counted, and at least one evaluation."""
@@ -1670,8 +1726,10 @@ def ba_assemble_bound_ms(win, mode: str, valid_pair=None) -> tuple:
     of its bytes over the memory rate and its operations over the float32
     rate. Bytes: each point's inputs once (uv 8, the inverse depth 4 and in
     modes active and fej its FEJ copy 4, color 32, weight 32, host 4, valid
-    1, res_mask F), the slot tables, the intrinsics and the state delta of
-    mode fej; the distinct texels of the valid samples at 12 B (I, dx, dy);
+    1, res_mask F), each slot's pose and state (T_eval 64, x 32, exposure
+    4, frame_valid 1 and, but for energy_only, x_zero 32: the kernel makes
+    the pair tables and the state delta of mode fej from them), the
+    intrinsics; the distinct texels of the valid samples at 12 B (I, dx, dy);
     each output once (H, b, H_xd, H_dd, b_d, e_pair, the masks, the energy,
     the count; energy_only the energy and count). Operations (csrc/ba.cu,
     counted per sample as a lane does them): K4_FLOPS_REQ each requested
@@ -1703,8 +1761,7 @@ def ba_assemble_bound_ms(win, mode: str, valid_pair=None) -> tuple:
     n_req, n_valid = 8 * int(requested.sum()), int(valid.sum())
     energy = mode == "energy"
     n_bytes = (P * (8 + 4 + (0 if energy else 4) + 32 + 32 + 4 + 1 + F)
-               + F * F * 62 * 4 + F * 3 * 4 + F + 32 + (4 * D if mode == "fej" else 0)
-               + 12 * n_texels
+               + F * (64 + 32 + 4 + (0 if energy else 32)) + F + 32 + 12 * n_texels
                + (12 if energy else 4 * (D * D + D + 1) + 8 + P * (4 * D + 8 + 6 * F)))
     flops = n_req * K4_FLOPS_REQ + n_valid * (
         K4_FLOPS_ENERGY if energy else K4_FLOPS_VALID + (K4_FLOPS_FEJ if mode == "fej" else 0))
@@ -1783,6 +1840,39 @@ def ba_compare(out_k, out_p, mode: str, win) -> dict:
     return rec
 
 
+def _ordered(t):
+    """float32 bits as integers in the order of the floats (-0 and +0 both 0)."""
+    import torch
+
+    i = t.contiguous().view(torch.int32).long()
+    return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+
+def ba_table_compare(win) -> dict:
+    """The pair and slot tables the BA kernel makes (its debug output,
+    ``kernels/ba.slot_tables_cuda``) against ``residuals.ba_slot_tables``
+    on the same window: the entries whose bits differ, each field's count
+    and largest distance in ulps (a zero of the other sign counts, at 0
+    ulps), and whether the slot tables are equal bit for bit."""
+    import torch
+
+    from ldso_tpu_torch.ba import residuals as res
+    from ldso_tpu_torch.kernels import ba as kba
+
+    pair_k, slot_k = kba.slot_tables_cuda(res._contiguous(win))
+    pair_p, slot_p = res.ba_slot_tables(win)
+    ne = pair_k.view(torch.int32) != pair_p.contiguous().view(torch.int32)
+    ulps = (_ordered(pair_k) - _ordered(pair_p)).abs()
+    fields = {}
+    for field, lo, hi in (("R_cur", 0, 9), ("t_cur", 9, 12), ("R_fej", 12, 21), ("t_fej", 21, 24),
+                          ("adj_fej", 24, 60), ("alpha_cur", 60, 61), ("alpha_fej", 61, 62)):
+        n = int(ne[..., lo:hi].sum())
+        if n:
+            fields[field] = (n, int(ulps[..., lo:hi].max()))
+    return dict(entries=int(ne.sum()), of=int(ne.numel()), max_ulps=int(ulps.max()),
+                fields=fields, slot_equal=_bits_equal(slot_k, slot_p.contiguous()))
+
+
 def check_ba(name: str, win, cfg, mode: str, time_it: bool = False) -> dict:
     """Hold the BA kernel against its plain version on one window (a BA
     window the drive built): ``assemble`` in ``mode`` "active" or "fej", or
@@ -1791,9 +1881,13 @@ def check_ba(name: str, win, cfg, mode: str, time_it: bool = False) -> dict:
     must be ties (``ba_tie_pairs``; in mode energy, which has no per-pair
     output, the count may differ by at most K4_MAX_TIES and every tie pair
     is dropped), at most K4_MAX_TIES of them: they are dropped from
-    res_mask and both versions run again, held as above. Returns a record;
-    with ``time_it`` also the kernel's device ms (its two launches), the
-    whole call's ms, the plain version's ms and the bound."""
+    res_mask and both versions run again, held as above. The record also
+    holds the pair tables the kernel made against ``ba_slot_tables``
+    (``ba_table_compare``: ``table``). With ``time_it`` also the kernel's
+    device ms (its launch), the whole call's ms (CUDA events over
+    back-to-back calls, as the two-launch version was read) and host ms
+    (the host clock of one call, unsynchronized), the plain version's ms
+    and the bound."""
     import numpy as np
     import torch
 
@@ -1863,16 +1957,15 @@ def check_ba(name: str, win, cfg, mode: str, time_it: bool = False) -> dict:
                hosts=int(torch.unique(win.p_host[win.p_valid]).numel()),
                slots=int(win.frame_valid.sum()), num_res=rec["num_res"][1],
                ties_found=int(tie.sum()), parted=int(parted.sum()), e_energy=rec["e_energy"],
-               used=rec["used"], max_abs_err=rec["max_abs_err"])
+               used=rec["used"], max_abs_err=rec["max_abs_err"], table=ba_table_compare(win))
     if time_it:
         wc = res._contiguous(win)
-        pair, slot = res.ba_slot_tables(wc)
-        delta = res.state_delta(wc) if mode == "fej" else None
         if mode == "energy":
-            out["ms"] = _device_ms(lambda: kba.energy_only_cuda(wc, pair, slot, **kw))
+            out["ms"] = _device_ms(lambda: kba.energy_only_cuda(wc, **kw))
         else:
-            out["ms"] = _device_ms(lambda: kba.assemble_cuda(wc, pair, slot, delta=delta, **kw))
+            out["ms"] = _device_ms(lambda: kba.assemble_cuda(wc, mode=mode, **kw))
         out["call_ms"] = _time_ms(lambda: kernel(win), reps=5, inner=5)
+        out["host_ms"] = _host_ms(lambda: kernel(win))
         out["plain_ms"] = _time_ms(lambda: plain(win), reps=5, inner=3)
         out["bound_ms"], out["bound_by"], out["bytes"], out["flops"] = ba_assemble_bound_ms(
             win, mode, None if mode == "energy" else out_p.valid_pair)
@@ -2969,8 +3062,9 @@ def main() -> int:
     print(f"run_ba by part (same profile, per call, {bs['calls']} calls, "
           f"{bs['assemble_calls']:.2f} assemblies a call): {bs['host_ms']:.2f} ms host / "
           f"{bs['device_ms']:.3f} ms device (torch ops) + {bs['kernel_device_ms']:.4f} ms of "
-          f"the BA kernel; host: assemble {bs['ba_assemble']:.2f} (its pair tables "
-          f"{bs['ba_precompute']:.2f}), _solve_core {bs['ba_solve_core']:.2f}, apply_step "
+          f"the BA kernel; host: assemble {bs['ba_assemble']:.2f} (pair tables in torch "
+          f"{bs['ba_precompute']:.2f}, {bs['precompute_calls']:.2f} precompute_pairs calls a "
+          f"run_ba), _solve_core {bs['ba_solve_core']:.2f}, apply_step "
           f"{bs['ba_apply_step']:.2f}, state_delta {bs['ba_state_delta']:.2f}, host syncs "
           f"{bs['syncs']:.2f}, copies {bs['copies']:.2f}, the rest {bs['rest']:.2f} ms; hand "
           f"kernels' device ms a frame " + ", ".join(f"{k} {v:.4f}"
@@ -3123,6 +3217,7 @@ def main() -> int:
 
     # ---- 4d. the BA linearization kernel on the main path's real windows
     t_phase = time.perf_counter()
+    from ldso_tpu_torch.ba import residuals as ba_residuals
     from ldso_tpu_torch.ba import solve as ba_solve
 
     if len(probe.ba_calls) < ACT_KEEP or not probe.marg_calls:
@@ -3141,7 +3236,7 @@ def main() -> int:
                   f"(ties found {r['ties_found']}; at most {K4_MAX_TIES}), bitwise equal in a "
                   f"second launch (bounds: rtol {K4_RTOL} + {K4_ATOL_FRAC} x each entry's "
                   f"Cauchy-Schwarz bound on its terms, energy rel {K4_E_RTOL}, masks and count "
-                  f"equal) | {card}",
+                  f"equal); {_table_text(r['table'])} | {card}",
                   flush=True)
         rr = check_run_ba(name, args, kw)
         run_recs.append(rr)
@@ -3158,21 +3253,34 @@ def main() -> int:
     ba_recs.append(r)
     print(f"kernel ba_assemble vs plain [marginalize_points, mode fej: {r['points']} points "
           f"folded]: energy rel {r['e_energy']:.3g}, error / bound up to {r['used']:.3g}, "
-          f"pairs parted at a tie {r['parted']}, bitwise equal in a second launch | {card}",
-          flush=True)
+          f"pairs parted at a tie {r['parted']}, bitwise equal in a second launch; "
+          f"{_table_text(r['table'])} | {card}", flush=True)
+    table_diff = [r["table"] for r in ba_recs
+                  if r["table"]["entries"] or not r["table"]["slot_equal"]]
     br = ba_recs[0]
     b_args, b_kw = probe.ba_calls[0]
-    n_ba, ms_ba = _device_events(lambda: ba_solve.run_ba(*_clone(b_args), **b_kw))
+    with count_calls(ba_residuals, "precompute_pairs") as pre_calls:
+        n_ba, ms_ba = _device_events(lambda: ba_solve.run_ba(*_clone(b_args), **b_kw))
+    if pre_calls[0]:
+        raise RuntimeError(f"run_ba on the kernel's path called precompute_pairs "
+                           f"{pre_calls[0]} times")
     with plain_ba():
         n_ba_p, ms_ba_p = _device_events(lambda: ba_solve.run_ba(*_clone(b_args), **b_kw))
     print(f"kernel ba_assemble timing [run_ba 1 after bench frame {ACT_AFTER}, mode active, "
-          f"two launches]: device {br['ms']:.4f} ms (queued behind a spin kernel), the whole "
-          f"assemble call {br['call_ms']:.4f} ms (pair tables included), plain assemble_torch "
-          f"{br['plain_ms']:.4f} ms (CUDA events over back-to-back calls), bound "
+          f"{ba_kernel.PER_EVALUATION} launch]: device {br['ms']:.4f} ms (queued behind a spin "
+          f"kernel; the two-launch version on an H100: 0.0971 ms), bound "
           f"{br['bound_ms']:.6f} ms by {br['bound_by']} ({br['bytes']} B, {br['flops']} flops); "
-          f"one run_ba call {n_ba} device kernels / copies, {ms_ba:.3f} ms device, plain "
-          f"{n_ba_p}, {ms_ba_p:.3f} ms (torch.profiler); phase wall time "
-          f"{time.perf_counter() - t_phase:.1f} s | {card}", flush=True)
+          f"the whole assemble call {br['call_ms']:.4f} ms (CUDA events over back-to-back "
+          f"calls; the two-launch version 1.69-4.30 ms with its pair tables in torch), "
+          f"{br['host_ms']:.4f} ms host clock a call; plain "
+          f"assemble_torch {br['plain_ms']:.4f} ms; pair tables made in the kernel against "
+          f"ba_slot_tables on {len(ba_recs)} windows: "
+          + ("bit for bit" if not table_diff else "; ".join(_table_text(t) for t in table_diff))
+          + f"; one run_ba call {n_ba} device kernels / copies (the two-launch version: "
+          f"1685), {ms_ba:.3f} ms device, {pre_calls[0]} precompute_pairs calls, plain "
+          f"{n_ba_p}, {ms_ba_p:.3f} ms "
+          f"(torch.profiler); phase wall time {time.perf_counter() - t_phase:.1f} s | {card}",
+          flush=True)
 
     # ---- 5. loop closure on the loop sequence
     t_phase = time.perf_counter()
@@ -3397,8 +3505,9 @@ def main() -> int:
         "launches_per_evaluation": ba_kernel.PER_EVALUATION,
         "max_abs_err": max(r["max_abs_err"] for r in ba_recs),
         "ties": sum(r["parted"] for r in ba_recs),
-        "ms": br["ms"], "ms_is": f"device, the two launches of one assemble (mode active) on "
+        "ms": br["ms"], "ms_is": f"device, the launch of one assemble (mode active) on "
         f"run_ba 1 after bench frame {ACT_AFTER}", "call_ms": br["call_ms"],
+        "host_ms": br["host_ms"], "table_entries_differ": sum(t["entries"] for t in table_diff),
         "plain_ms": br["plain_ms"], "bound_ms": br["bound_ms"], "bound_by": br["bound_by"],
         "library_ms": None, "run_ba_kernels": n_ba, "run_ba_kernels_plain": n_ba_p,
         "run_ba_host_ms": bs["host_ms"], "run_ba_device_ms": bs["device_ms"],

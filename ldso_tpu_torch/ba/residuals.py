@@ -18,9 +18,9 @@ frame slot s: [xi(6), a, b]; columns [8F:] = intrinsics [fx fy cx cy].
 
 ``assemble`` and ``energy_only`` dispatch on the device of the window:
 the plain versions ``assemble_torch`` and ``energy_only_torch`` (torch
-compositions) for CPU tensors, the CUDA kernel (``kernels/ba.py``, two
-launches an evaluation, the pair tables of ``ba_slot_tables`` made here in
-torch) for CUDA tensors; any other device raises.
+compositions) for CPU tensors, the CUDA kernel (``kernels/ba.py``, one
+launch an evaluation that makes the pair tables too) for CUDA tensors; any
+other device raises.
 """
 
 from __future__ import annotations
@@ -188,10 +188,11 @@ def energy_only(win: Window, huber_th: float = 9.0, outlier_sum: float = 2500.0)
 
 
 def ba_slot_tables(win: Window):
-    """``precompute_pairs`` as the kernel reads it: the pair table
-    [F, F, 62] ([host, target]: R_cur 9, t_cur 3, R_fej 9, t_fej 3, adj_fej
-    36, alpha_cur, alpha_fej) and the slot table [F, 3] (b_host_cur,
-    b_host_fej, b_tgt_cur), the values the plain version gathers per point."""
+    """``precompute_pairs`` as flat tables: the pair table [F, F, 62]
+    ([host, target]: R_cur 9, t_cur 3, R_fej 9, t_fej 3, adj_fej 36,
+    alpha_cur, alpha_fej) and the slot table [F, 3] (b_host_cur, b_host_fej,
+    b_tgt_cur), the values the plain version gathers per point: the
+    yardstick of the tables the kernel makes (``kernels/ba.slot_tables_cuda``)."""
     pre = precompute_pairs(win)
     F = win.num_frames
     pair = torch.cat([pre.R_cur.reshape(F, F, 9), pre.t_cur, pre.R_fej.reshape(F, F, 9),
@@ -208,18 +209,13 @@ def _contiguous(win: Window) -> Window:
 def _assemble_kernel(win: Window, huber_th: float, outlier_sum: float, mode: str) -> BASystem:
     from ldso_tpu_torch.kernels.ba import assemble_cuda
 
-    win = _contiguous(win)
-    pair, slot = ba_slot_tables(win)
-    delta = state_delta(win) if mode == "fej" else None
-    return assemble_cuda(win, pair, slot, huber_th, outlier_sum, delta=delta)
+    return assemble_cuda(_contiguous(win), huber_th, outlier_sum, mode)
 
 
 def _energy_only_kernel(win: Window, huber_th: float, outlier_sum: float):
     from ldso_tpu_torch.kernels.ba import energy_only_cuda
 
-    win = _contiguous(win)
-    pair, slot = ba_slot_tables(win)
-    return energy_only_cuda(win, pair, slot, huber_th, outlier_sum)
+    return energy_only_cuda(_contiguous(win), huber_th, outlier_sum)
 
 
 def assemble_torch(win: Window, huber_th: float = 9.0, outlier_sum: float = 2500.0,

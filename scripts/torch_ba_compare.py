@@ -8,9 +8,12 @@ Each drive runs in a process of its own: the sync ``FullSystem`` at
 ``preset("default")`` over the 120-frame 640x480 bench sequence, as
 ``chip_smoke.py`` phase 4 does, with this checkout's
 ``chip_smoke.BenchProbe``: bench frames 40..59 under torch.profiler, whose
-labels split ``run_ba``'s host time into the assembly (with the pair
-tables), the damped solve, the step, the state deltas, the host syncs,
-the copies and the rest (``chip_smoke.ba_split``). The package driven is
+labels split ``run_ba``'s host time into the assembly, the pair tables
+made in torch (``precompute_pairs``: made there by a parent whose kernel
+reads them from the host; this checkout's kernel makes them itself), the
+damped solve, the step, the state deltas, the host syncs, the copies and
+the rest (``chip_smoke.ba_split``), with the hand kernel's device ms an
+evaluation. The package driven is
 the one of the drive's root, so a ``--parent DIR`` (an unpacked ``git
 archive`` of an earlier commit, in a directory the repository ignores) is
 measured with the same instruments; the drives then alternate parent, this checkout,
@@ -187,6 +190,9 @@ def main() -> int:
               + f" (median {statistics.median(r['run_ba']['host_ms'] for r in rs):.2f}); "
               + "device ms a call (torch ops + hand kernel) " + ", ".join(
                   f"{r['run_ba']['device_ms']:.3f} + {r['run_ba']['kernel_device_ms']:.3f}"
+                  for r in rs)
+              + "; the hand kernel's device ms an evaluation " + ", ".join(
+                  f"{r['run_ba']['kernel_device_ms'] / max(r['run_ba']['assemble_calls'], 1):.4f}"
                   for r in rs)
               + "; split a call (median): " + ", ".join(
                   f"{p} {statistics.median(r['run_ba'][p] for r in rs):.2f}" for p in parts)

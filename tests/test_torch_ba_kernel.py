@@ -2,13 +2,16 @@
 ``ba.residuals.assemble`` / ``energy_only`` (CPU -> the plain versions
 ``assemble_torch`` / ``energy_only_torch``, CUDA -> the kernel of
 ``kernels/ba.py``, anything else raises), the wrappers' refusals, a torch
-emulation of the kernel's two-pass layout (each point's record, then the
-fixed-order reduce by ``kernels/ba.reduce_table``) against the plain
-version, the plain versions against the JAX package's ``assemble`` /
-``energy_only``, chip_smoke's yardsticks (ties, the bound, the run_ba
-comparison, the evaluation count) on the CPU, and, on a card, the kernel
-against its plain version with chip_smoke's tie rule, bit for bit in a
-second launch.
+emulation of the kernel's order (each task's words summed by its butterfly,
+the tiles' tasks into per-CTA partials by ``kernels/ba.index_table``, the
+partials added in CTA order by groups) against the plain version, a replay
+of the pair tables the kernel makes (its expression, in torch ops)
+against ``residuals.ba_slot_tables``, the plain versions against the JAX
+package's ``assemble`` / ``energy_only``, chip_smoke's yardsticks (ties,
+the bound, the run_ba comparison, the evaluation count) on the CPU, and, on
+a card, the kernel against its plain version with chip_smoke's tie rule,
+bit for bit in a second launch, at 1, 3, 10 and 32 slots, and the tables it
+makes against ``ba_slot_tables`` bit for bit.
 
 The window has the default shapes (2048 points, 10 slots, 640x480), made
 with numpy from a seed: points hosted in six slots, four invalid slots (one
@@ -61,12 +64,15 @@ def single_torch_thread():
     torch.set_num_threads(n)
 
 
-def _window(seed: int = 0) -> dict:
-    """The numpy fields of a default-shape window (see the module doc)."""
-    F, P, w, h = CFG.shapes.max_frames, CFG.shapes.max_points, 640, 480
-    n = len(SLOTS)
-    ds = synthetic.SyntheticDataset(w=w, h=h, n=n, seed=seed, supersample=1)
-    ds.poses_w_c = synthetic.trajectory(n, "forward_arc", step=0.1)
+def _window(seed: int = 0, F: int = None, slots: tuple = SLOTS, P: int = None, w: int = 640,
+            h: int = 480) -> dict:
+    """The numpy fields of a window (see the module doc): the default
+    shapes, or ``F`` slots of which ``slots`` are valid, ``P`` points."""
+    F = F or CFG.shapes.max_frames
+    P = P or CFG.shapes.max_points
+    n = len(slots)
+    ds = synthetic.SyntheticDataset(w=w, h=h, n=max(n, 2), seed=seed, supersample=1)
+    ds.poses_w_c = synthetic.trajectory(max(n, 2), "forward_arc", step=0.1)
     ds._cache = {}
     rng = np.random.default_rng(seed + 21)
     a = dict(frame_valid=np.zeros(F, bool), T_eval=np.tile(np.eye(4, dtype=np.float32), (F, 1, 1)),
@@ -76,7 +82,7 @@ def _window(seed: int = 0) -> dict:
     a["c_zero"] = intr
     a["c"] = (intr + np.asarray([0.3, -0.3, 0.2, 0.1], np.float32)).astype(np.float32)
     imgs = []
-    for k, s in enumerate(SLOTS):
+    for k, s in enumerate(slots):
         a["frame_valid"][s] = True
         a["T_eval"][s] = ds.gt_pose_c_w(k).astype(np.float32)
         a["x_zero"][s, 6:] = [0.02 * (k - 2.5), 0.5 * (k - 2.5)]
@@ -107,13 +113,14 @@ def _window(seed: int = 0) -> dict:
         color[rows] = imgs[k][pu[..., 1], pu[..., 0]]
         weight[rows] = np.sqrt(OSUM / (OSUM + g2[pu[..., 1], pu[..., 0]]))
         idep[rows] = d[sel[:, 0], sel[:, 1]]
-    a.update(p_host=np.asarray(SLOTS, np.int32)[host_k], p_uv=uv, p_color=color,
+    a.update(p_host=np.asarray(slots, np.int32)[host_k], p_uv=uv, p_color=color,
              p_weight=weight.astype(np.float32))
     a["p_idepth"] = (idep * (1 + 0.02 * rng.normal(size=P))).astype(np.float32)
     a["p_idepth_zero"] = (a["p_idepth"] * (1 + 0.01 * rng.normal(size=P))).astype(np.float32)
     a["p_valid"] = rng.random(P) > 0.08
     res = a["frame_valid"][None, :] & (rng.random((P, F)) > 0.15)
-    own = rng.random(P) < 0.05                   # a few keep their own host slot
+    # a few keep their own host slot (every point, when it is the only slot)
+    own = rng.random(P) < (0.05 if n > 1 else 1.0)
     res[np.arange(P), a["p_host"]] = own
     a["res_mask"] = res
     e = P - N_EDGE                                # the edge points
@@ -125,7 +132,8 @@ def _window(seed: int = 0) -> dict:
     # its own host among its targets, 4e-4 px inside the border: a tie
     a["p_uv"][e + 8] = (2.0004, h / 2)
     a["res_mask"][e + 8, a["p_host"][e + 8]] = True
-    a["p_host"][e + 9:e + 12] = 1                 # hosted on an invalid slot
+    if F > 1 and not a["frame_valid"][1]:
+        a["p_host"][e + 9:e + 12] = 1             # hosted on an invalid slot
     a["res_mask"][e + 12] = False                 # nothing requested
     a["p_valid"][e + 13] = False                  # invalid, with a full res_mask
     a["res_mask"][e + 13] = a["frame_valid"]
@@ -156,10 +164,10 @@ def _close(t, j, rtol, atol_frac):
 
 def _rows(win: Window, mode: str):
     """Every sample's rows as ``assemble_torch`` makes them (its own
-    helpers): target8, host8, cam4 [P, F, 8, *], d, w = omega, the
-    residual of the gradient, the energy, the validity [P, F, 8] and the
-    per-pair ``requested`` [P, F]; mode "energy" only w, e and the
-    validity (``energy_only_torch``'s)."""
+    helpers): target8, host8, cam4 [P, F, 8, *], d, w = omega, w times the
+    residual of the gradient and that residual, the energy, the validity
+    [P, F, 8] and the per-pair ``requested`` [P, F]; mode "energy" only w,
+    e and the validity (``energy_only_torch``'s)."""
     F, P = win.num_frames, win.num_points
     H_img, W_img = win.images.shape[1], win.images.shape[2]
     pre = tres.precompute_pairs(win)
@@ -206,64 +214,275 @@ def _rows(win: Window, mode: str):
                       + torch.einsum("pfka,pa->pfk", h8, dF[host])
                       + torch.einsum("pfka,a->pfk", c4, dC)
                       + d * (win.p_idepth - win.p_idepth_zero)[:, None, None])
-    return dict(t8=t8, h8=h8, c4=c4, d=d, w=omega, wr=omega * r_used,
+    return dict(t8=t8, h8=h8, c4=c4, d=d, w=omega, wr=omega * r_used, r=r_used,
                 e=omega * r * r * (2.0 - hw), valid=valid, requested=requested)
 
 
-def _emulate(win: Window, mode: str):
-    """The kernel's two passes in torch: each point's record (``kernels/
-    ba.py``'s layout) and per-point outputs, then the reduce by the
-    kernel's table. Returns what ``assemble`` returns (a dict), or
-    (energy, count) in mode "energy"."""
+def _butterfly8(v):
+    """The kernel's sum over a group's 8 lanes (dim -2): lanes (k, k ^ 4),
+    then (k, k ^ 2), then (k, k ^ 1)."""
+    a = v[..., 0:4, :] + v[..., 4:8, :]
+    b = a[..., 0:2, :] + a[..., 2:4, :]
+    return b[..., 0, :] + b[..., 1, :]
+
+
+def _sample_words(s, f: int, mode: str):
+    """Slot f's samples' words [P, 8, GROUP_WORDS] and [P, 8, POINT_WORDS]
+    (``csrc/ba.cu``'s group_word / point_word), zero for an invalid sample;
+    mode "energy": [P, 8, 2] (the energy, the count)."""
+    valid = s["valid"][:, f]
+    n = valid.float()
+    e = torch.where(valid, s["e"][:, f], 0.0)
+    if mode == "energy":
+        return None, torch.stack([e, n], -1)
+    t8, h8, c4 = s["t8"][:, f], s["h8"][:, f], s["c4"][:, f]
+    w, d, wr, r = s["w"][:, f], s["d"][:, f], s["wr"][:, f], s["r"][:, f]
+    wd = w * d
+    i8, i4 = torch.triu_indices(8, 8), torch.triu_indices(4, 4)
+    wt, wh, wc = w[..., None] * t8, w[..., None] * h8, w[..., None] * c4
+    group = torch.cat([wt[..., i8[0]] * t8[..., i8[1]],
+                       (wh[..., :, None] * t8[..., None, :]).flatten(-2),
+                       (wt[..., :, None] * c4[..., None, :]).flatten(-2),
+                       t8 * wr[..., None], t8 * wd[..., None], e[..., None]], -1)
+    point = torch.cat([wh[..., i8[0]] * h8[..., i8[1]],
+                       (wh[..., :, None] * c4[..., None, :]).flatten(-2),
+                       h8 * wr[..., None], wc[..., i4[0]] * c4[..., i4[1]], c4 * wr[..., None],
+                       e[..., None], n[..., None], h8 * wd[..., None], c4 * wd[..., None],
+                       (wd * d)[..., None], (wd * r)[..., None]], -1)
+    assert group.shape[-1] == kba.GROUP_WORDS and point.shape[-1] == kba.POINT_WORDS
+    return (torch.where(valid[..., None], group, 0.0),
+            torch.where(valid[..., None], point, 0.0))
+
+
+def _emulate(win: Window, mode: str, sms: int = 132):
+    """The kernel's order in torch (``csrc/ba.cu``): each task's words (a
+    point's pass of 4 valid target slots) by the butterfly, the per-point
+    outputs from them, each CTA's partial system over its tiles' tasks by
+    ``kernels/ba.index_table`` (terms in order, tasks in order), the
+    partials added in CTA order by groups of GROUP_SIZE, then the groups.
+    Returns what ``assemble`` returns (a dict), or (energy, count) in mode
+    "energy"."""
     F, P = win.num_frames, win.num_points
     D = 8 * F + 4
-    host = win.p_host.long()
+    host = win.p_host.long().clamp(0, F - 1)
     s = _rows(win, mode)
+    vs = [f for f in range(F) if bool(win.frame_valid[f])]
+    QP = kba.passes(len(vs))
+    GW, PW = kba.GROUP_WORDS, kba.POINT_WORDS
+    tg = torch.zeros(P, QP, 4, GW)                     # a task's pair words
+    pp = torch.zeros(P, QP, 4, PW)                     # its groups' point-word partials
+    ev = torch.zeros(P, QP, 4, 8, 2)                   # energy_only: its lanes' (e, n)
+    for vi, f in enumerate(vs):
+        group, point = _sample_words(s, f, mode)
+        if mode == "energy":
+            ev[:, vi // 4, vi % 4] = point
+        else:
+            tg[:, vi // 4, vi % 4] = _butterfly8(group)
+            pp[:, vi // 4, vi % 4] = _butterfly8(point)
+    nonempty = s["valid"][:, vs].any(-1) if vs else torch.zeros(P, 0, dtype=torch.bool)
+    nonempty = torch.cat([nonempty, torch.zeros(P, 4 * QP - len(vs), dtype=torch.bool)], 1)
+    nonempty = nonempty.view(P, QP, 4).any(-1)
     if mode == "energy":
-        rec = torch.stack([s["e"].sum((1, 2)), s["valid"].sum((1, 2)).float()], 1)
+        # over the 32 lanes: (g, g ^ 2), (g, g ^ 1), then the group butterfly
+        g = (ev[:, :, 0] + ev[:, :, 2]) + (ev[:, :, 1] + ev[:, :, 3])
+        tp = torch.zeros(P, QP, PW)
+        tp[..., [kba.PE, kba.PN]] = _butterfly8(g)
         table = torch.as_tensor(kba.energy_table()).long()
     else:
-        w, t8, h8, c4, d, wr = s["w"], s["t8"], s["h8"], s["c4"], s["d"], s["wr"]
-        i8, i4 = torch.triu_indices(8, 8), torch.triu_indices(4, 4)
-        pair = torch.cat([
-            torch.einsum("pfk,pfka,pfkb->pfab", w, t8, t8)[..., i8[0], i8[1]],
-            torch.einsum("pfk,pfka,pfkb->pfab", w, h8, t8).reshape(P, F, 64),
-            torch.einsum("pfk,pfka,pfkb->pfab", w, t8, c4).reshape(P, F, 32),
-            torch.einsum("pfka,pfk->pfa", t8, wr)], -1)
-        assert pair.shape[-1] == kba.PAIR_WORDS
-        point = torch.cat([
-            torch.einsum("pfk,pfka,pfkb->pab", w, h8, h8)[:, i8[0], i8[1]],
-            torch.einsum("pfk,pfka,pfkb->pab", w, h8, c4).reshape(P, 32),
-            torch.einsum("pfka,pfk->pa", h8, wr),
-            torch.einsum("pfk,pfka,pfkb->pab", w, c4, c4)[:, i4[0], i4[1]],
-            torch.einsum("pfka,pfk->pa", c4, wr),
-            s["e"].sum((1, 2))[:, None], s["valid"].sum((1, 2)).float()[:, None]], 1)
-        assert point.shape[-1] == kba.POINT_WORDS
-        rec = torch.cat([pair.reshape(P, F * kba.PAIR_WORDS), point], 1)
-        table = torch.as_tensor(kba.reduce_table(F)).long()
-    total = torch.zeros(table.shape[0], dtype=torch.float32)
-    for t in range(4):
-        cond, off = table[:, 3 + 2 * t], table[:, 4 + 2 * t]
-        take = (cond[None, :] == kba.ALWAYS) | (cond[None, :] == host[:, None])
-        total = total + torch.where(take & (cond[None, :] != kba.UNUSED),
-                                    rec[:, off.clamp(min=0)], 0.0).sum(0)
-    counting = table[:, 0] == kba.INTEGER
+        tp = (pp[:, :, 0] + pp[:, :, 1]) + (pp[:, :, 2] + pp[:, :, 3])
+        table = torch.as_tensor(kba.index_table(F)).long()
+    staged = torch.cat([tg.reshape(P, QP, 4 * GW), tp], -1)     # [P, QP, 702]
+    n = table.shape[0]
+    # each term's place in a task's staging, the pass it needs, its host condition
+    terms = []
+    for j in range(4):
+        t = table[:, j]
+        word, src, cond = t & 255, (t >> 8) & 63, (t >> 16) & 63
+        vidx = torch.tensor([vs.index(x) if x in vs else -1 for x in range(kba.SRC_POINT + 1)])
+        vi = vidx[src.clamp(max=kba.SRC_POINT)]
+        point_src = src == kba.SRC_POINT
+        present = (t >= 0) & (point_src | (vi >= 0))
+        off = torch.where(point_src, 4 * GW + word, (vi % 4) * GW + word)
+        terms.append((present, off.clamp(0, staged.shape[-1] - 1),
+                      torch.where(point_src, -1, vi // 4), cond))
+    NPT = kba.WARPS // QP
+    tiles = -(-P // NPT)
+    G = kba.grid_size(P, F, sms)
+    part = torch.zeros(G, n)
+    pidx, qidx = torch.arange(NPT).repeat_interleave(QP), torch.arange(QP).repeat(NPT)
+    for tile in range(tiles):
+        c, p0 = tile % G, tile * NPT
+        ok = p0 + pidx < P
+        pt, qt = (p0 + pidx)[ok], qidx[ok]
+        ht, live = host[pt], nonempty[pt, qt]
+        v = part[c]
+        for present, off, qreq, cond in terms:
+            vals = staged[pt, qt][:, off]                                 # [tasks, n]
+            use = (present[None] & live[:, None] & ((qreq[None] < 0) | (qreq[None] == qt[:, None]))
+                   & ((cond[None] == kba.ALWAYS) | (cond[None] == ht[:, None])))
+            for tau in range(len(pt)):
+                v = v + torch.where(use[tau], vals[tau], 0.0)
+        part[c] = v
+    gs = []
+    for g0 in range(0, G, kba.GROUP_SIZE):
+        acc = part[g0]
+        for b in range(g0 + 1, min(g0 + kba.GROUP_SIZE, G)):
+            acc = acc + part[b]
+        gs.append(acc)
+    total = gs[0]
+    for acc in gs[1:]:
+        total = total + acc
+    out0, out1 = table[:, 4], table[:, 5]
+    counting = out0 < 0
     count = int(total[counting].round().item())
     if mode == "energy":
         return total[~counting][0], count
     out = torch.full((D * D + D + 1,), float("nan"))
-    out[table[~counting, 1]] = total[~counting]
-    m = table[:, 2] >= 0
-    out[table[m, 2]] = total[m]
-    wd = s["w"] * s["d"]
-    hx_t = torch.einsum("pfka,pfk->pfa", s["t8"], wd)
-    hx_t[torch.arange(P), host] += torch.einsum("pfka,pfk->pa", s["h8"], wd)
-    H_xd = torch.cat([hx_t.reshape(P, 8 * F), torch.einsum("pfka,pfk->pa", s["c4"], wd)], 1)
+    out[out0[~counting]] = total[~counting]
+    m = out1 >= 0
+    out[out1[m]] = total[m]
+    # the points' own outputs: their passes added in pass order
+    H_xd = torch.zeros(P, D)
+    for vi, f in enumerate(vs):
+        H_xd[:, 8 * f:8 * f + 8] = tg[:, vi // 4, vi % 4, kba.HX:kba.HX + 8]
+    hh, hc, hdd, bd = (torch.zeros(P, 8), torch.zeros(P, 4), torch.zeros(P), torch.zeros(P))
+    for q in range(QP):
+        hh = hh + tp[:, q, kba.HXH:kba.HXH + 8]
+        hc = hc + tp[:, q, kba.HXC:kba.HXC + 4]
+        hdd = hdd + tp[:, q, kba.HDD]
+        bd = bd + tp[:, q, kba.BD]
+    rows = torch.arange(P)
+    cols = 8 * host[:, None] + torch.arange(8)[None]
+    H_xd[rows[:, None], cols] = H_xd[rows[:, None], cols] + hh
+    H_xd[:, 8 * F:] = hc
+    e_pair = torch.zeros(P, F)
+    for vi, f in enumerate(vs):
+        e_pair[:, f] = tg[:, vi // 4, vi % 4, kba.GE]
     valid_pair = s["valid"].any(-1)
     return dict(H=out[:D * D].reshape(D, D), b=out[D * D:D * D + D], energy=out[-1],
-                num_res=count, H_xd=H_xd, H_dd=(wd * s["d"]).sum((1, 2)),
-                b_d=(s["d"] * s["wr"]).sum((1, 2)), e_pair=s["e"].sum(-1),
+                num_res=count, H_xd=H_xd, H_dd=hdd, b_d=bd, e_pair=e_pair,
                 valid_pair=valid_pair, oob_pair=s["requested"] & ~valid_pair)
+
+
+# the pair tables as the kernel makes them (csrc/ba.cu slot_entry, make_pair),
+# in torch ops in its order; how the device sums torch's small products and
+# its 3-value sum comes in as RULES: each product's dot products ("seq":
+# each product and sum rounded; "fma": fused multiply-adds in index order),
+# sum3, and x / k for a python float k. The card's are the kernel's
+# (csrc/ba.cu's Rules, which also split some chains in two; the gpu cases
+# hold its tables to ba_slot_tables); the CPU's, read
+# off torch here: its batched products round each product and sum, MKL's
+# sgemm under the einsum chains fused multiply-adds except at F = 1 (a 4x4
+# product, computed as the batched ones), torch.sum adds (x0 + x1) + x2,
+# x / k divides
+PRODUCTS = ("KK", "Vrho", "ET", "inv", "rel", "adj")
+
+
+def _cpu_rules(F: int) -> tuple:
+    modes = {k: "seq" for k in PRODUCTS}
+    modes["rel"] = "fma" if F > 1 else "seq"
+    return modes, lambda q: (q[0] + q[1]) + q[2], lambda t, k: t / k
+
+
+def _fma(a, b, c):
+    """float32 fused multiply-add, exact: the float64 product is exact, the
+    float64 sum taken to round-to-odd (TwoSum), then rounded once to
+    float32."""
+    a, b, c = torch.broadcast_tensors(a, b, c)
+    p, cc = a.double() * b.double(), c.double()
+    s = p + cc
+    bb = s - p
+    err = (p - (s - bb)) + (cc - bb)
+    even = (s.view(torch.int64) & 1) == 0
+    s = torch.where((err != 0) & even, torch.nextafter(s, s + err), s)
+    return s.float()
+
+
+def _dot(pairs, mode: str):
+    """A dot product accumulated from +0 in index order (the start shows
+    only in the sign of an exact zero), by ``mode`` (see RULES)."""
+    acc = torch.zeros_like(pairs[0][0] * pairs[0][1])
+    for a, b in pairs:
+        acc = _fma(a, b, acc) if mode == "fma" else acc + a * b
+    return acc
+
+
+def _replay_slot_tables(win: Window, rules: tuple) -> tuple:
+    """(pair [F, F, 62], slot [F, 3]) by the kernel's expression."""
+    modes, sum3, divk = rules
+    x, xz, Te, ex = win.x, win.x_zero, win.T_eval, win.exposure
+    F = x.shape[0]
+    r, p = [x[:, i] for i in range(3)], [x[:, 3 + i] for i in range(3)]
+    tsq = sum3([pi * pi for pi in p])
+    small = tsq < 1e-8
+    safe = torch.where(small, torch.ones_like(tsq), tsq)
+    th = torch.sqrt(safe)
+    sn, cs_ = torch.sin(th), torch.cos(th)
+    A = torch.where(small, 1.0 - divk(tsq, 6.0), sn / th)
+    B = torch.where(small, 0.5 - divk(tsq, 24.0), (1.0 - cs_) / safe)
+    C = torch.where(small, 1.0 / 6.0 - divk(tsq, 120.0), (th - sn) / (safe * th))
+    z = torch.zeros_like(tsq)
+    K = [[z, -p[2], p[1]], [p[2], z, -p[0]], [-p[1], p[0], z]]
+    R = [[None] * 3 for _ in range(3)]
+    V = [[None] * 3 for _ in range(3)]
+    for i in range(3):
+        for j in range(3):
+            kk = _dot([(K[i][m], K[m][j]) for m in range(3)], modes["KK"])
+            e = 1.0 if i == j else 0.0
+            R[i][j] = (e + A * K[i][j]) + B * kk
+            V[i][j] = (e + B * K[i][j]) + C * kk
+    t = [_dot([(V[i][j], r[j]) for j in range(3)], modes["Vrho"]) for i in range(3)]
+    E = [[R[i][0], R[i][1], R[i][2], t[i]] for i in range(3)]
+    Tc = [[_dot([(E[i][j], Te[:, j, k]) for j in range(4)], modes["ET"]) for k in range(4)]
+          for i in range(3)]
+    Tv = [[Te[:, i, k] for k in range(4)] for i in range(3)]
+
+    def inverse(T):
+        return [[T[j][i] for j in range(3)]
+                + [-_dot([(T[j][i], T[j][3]) for j in range(3)], modes["inv"])] for i in range(3)]
+
+    def rel(Tt, Ti):                  # [h, t] = T_t T_h^-1
+        return [[_dot([(Tt[i][j][None, :], Ti[j][k][:, None]) for j in range(3)]
+                      + [(Tt[i][3][None, :].expand(F, F),
+                          torch.full((F, F), 1.0 if k == 3 else 0.0))], modes["rel"])
+                 for k in range(4)] for i in range(3)]
+
+    rc, rf = rel(Tc, inverse(Tc)), rel(Tv, inverse(Tv))
+    zz = torch.zeros(F, F)
+    tf = [rf[i][3] for i in range(3)]
+    ht = [[zz, -tf[2], tf[1]], [tf[2], zz, -tf[0]], [-tf[1], tf[0], zz]]
+    tR = [[_dot([(ht[i][m], rf[m][j]) for m in range(3)], modes["adj"]) for j in range(3)]
+          for i in range(3)]
+    adj = [[(rf[i][j] if j < 3 else tR[i][j - 3]) if i < 3 else (zz if j < 3 else rf[i - 3][j - 3])
+            for j in range(6)] for i in range(6)]
+    eac, eaf = ex * torch.exp(x[:, 6]), ex * torch.exp(xz[:, 6])
+    cols = ([rc[i][j] for i in range(3) for j in range(3)] + [rc[i][3] for i in range(3)]
+            + [rf[i][j] for i in range(3) for j in range(3)] + [rf[i][3] for i in range(3)]
+            + [adj[i][j] for i in range(6) for j in range(6)]
+            + [eac[None, :] / eac[:, None], eaf[None, :] / eaf[:, None]])
+    return torch.stack(cols, -1), torch.stack([x[:, 7], xz[:, 7], x[:, 7]], -1)
+
+
+def _pose_window(F: int, angle: float, seed: int = 0, device="cpu") -> Window:
+    """A window whose poses and affine states are random (rotations of
+    about ``angle`` rad in T_eval and x), its points a placeholder."""
+    from ldso_tpu_torch.math import lie
+
+    rng = np.random.default_rng(seed)
+    xi = torch.as_tensor(np.concatenate([rng.normal(size=(F, 3)),
+                                         rng.normal(size=(F, 3)) * angle], 1), dtype=torch.float32)
+    x = rng.normal(size=(F, 8)) * 0.1
+    x[:, 3:6] = rng.normal(size=(F, 3)) * angle
+    a = dict(frame_valid=np.ones(F, bool), T_eval=lie.se3_exp(xi).numpy(),
+             x=x.astype(np.float32), x_zero=(rng.normal(size=(F, 8)) * 0.1).astype(np.float32),
+             exposure=(1 + 0.1 * rng.random(F)).astype(np.float32),
+             images=np.zeros((F, 16, 16, 3), np.float32), c=np.ones(4, np.float32),
+             c_zero=np.ones(4, np.float32), p_valid=np.zeros(4, bool),
+             p_host=np.zeros(4, np.int32), p_uv=np.zeros((4, 2), np.float32),
+             p_color=np.zeros((4, 8), np.float32), p_weight=np.zeros((4, 8), np.float32),
+             p_idepth=np.ones(4, np.float32), p_idepth_zero=np.ones(4, np.float32),
+             res_mask=np.zeros((4, F), bool))
+    return _twin(a, device)
 
 
 # ---- on the CPU
@@ -281,7 +500,7 @@ def test_window_has_the_default_shapes_and_several_hosts(window):
 
 
 @pytest.mark.parametrize("mode", ["active", "fej", "energy"])
-def test_emulated_two_pass_layout_equals_plain(window, mode):
+def test_emulated_kernel_order_equals_plain(window, mode):
     win = _twin(window)
     emu = _emulate(win, mode)
     if mode == "energy":
@@ -299,16 +518,47 @@ def test_emulated_two_pass_layout_equals_plain(window, mode):
     np.testing.assert_allclose(float(emu["energy"]), float(plain.energy), rtol=EMU_RTOL)
 
 
-@pytest.mark.parametrize("F", [1, 3, 10])
-def test_reduce_table_writes_every_entry_once(F):
+@pytest.mark.parametrize("F", [1, 3, 10, 32])
+def test_index_table_writes_every_entry_once(F):
     D = 8 * F + 4
-    t = kba.reduce_table(F)
-    assert t.shape == (8 * F * (8 * F + 1) // 2 + 32 * F + 10 + D + 2, kba.TABLE_WORDS)
-    outs = np.concatenate([t[t[:, 0] == kba.SUM, 1], t[t[:, 2] >= 0, 2]])
+    t = kba.index_table(F)
+    assert t.shape == (kba.entries(F), kba.TABLE_WORDS)
+    assert t.shape[0] == 8 * F * (8 * F + 1) // 2 + 32 * F + 10 + D + 2
+    out0, out1 = t[:, 4], t[:, 5]
+    outs = np.concatenate([out0[out0 >= 0], out1[out1 >= 0]])
     assert sorted(outs.tolist()) == list(range(D * D + D + 1))
-    words = t[:, 4:12:2][t[:, 3:11:2] != kba.UNUSED]
-    assert words.min() >= 0 and words.max() < kba.record_words(F)
-    assert (t[:, 0] == kba.INTEGER).sum() == 1
+    assert (out0 < 0).sum() == 1 and out1[out0 < 0] == -1 and out0[-1] == -1
+    # the kernel writes output o from entry output_entries(F)[o]
+    inv = kba.output_entries(F)
+    assert inv.shape == (D * D + D + 1,) and inv.min() >= 0
+    assert ((out0[inv] == np.arange(inv.size)) | (out1[inv] == np.arange(inv.size))).all()
+    terms = t[:, :4][t[:, :4] >= 0]
+    word, src, cond = terms & 255, (terms >> 8) & 63, (terms >> 16) & 63
+    point = src == kba.SRC_POINT
+    assert ((src < F) | point).all() and ((cond < F) | (cond == kba.ALWAYS)).all()
+    assert (word[point] < kba.POINT_WORDS).all() and (word[~point] < kba.GROUP_WORDS).all()
+    assert (terms >> 22 == 0).all() and (t[:, 6:] == 0).all()
+    # every entry counts at least one term, each (source, word) for one entry
+    # of the upper triangle and b (a mirrored off-diagonal word twice)
+    assert (t[:, 0] >= 0).all()
+    assert np.array_equal(kba.energy_table()[:, 4:6], [[0, -1], [-1, -1]])
+    assert np.array_equal(kba.output_entries(None), [0])
+
+
+@pytest.mark.parametrize("F", [1, 3, 10])
+@pytest.mark.parametrize("angle", [1e-6, 1.0])
+def test_slot_table_replay_is_bitwise(F, angle):
+    # the kernel's expression with the CPU's rounding rules gives the CPU's
+    # ba_slot_tables bit for bit: the small-angle branch (angle 1e-6) and
+    # the general one
+    win = _pose_window(F, angle, seed=F)
+    pair, slot = tres.ba_slot_tables(win)
+    rp, rs = _replay_slot_tables(win, _cpu_rules(F))
+    assert rp.shape == pair.shape == (F, F, kba.PAIR_TABLE)
+    assert torch.equal(rp.view(torch.int32), pair.view(torch.int32))
+    assert torch.equal(rs.view(torch.int32), slot.view(torch.int32))
+    small = bool((win.x[:, 3:6].square().sum(-1) < 1e-8).all())
+    assert small == (angle < 1e-3)
 
 
 @pytest.mark.parametrize("mode", ["active", "fej"])
@@ -354,24 +604,24 @@ def test_dispatch_takes_the_plain_versions_for_cpu_tensors(window):
 
 def test_wrappers_refuse_cpu_wrong_dtypes_and_non_contiguous_tensors(window):
     win = _twin(window)
-    pair, slot = tres.ba_slot_tables(win)
-    F = win.num_frames
-    assert pair.shape == (F, F, kba.PAIR_TABLE) and slot.shape == (F, 3)
     with pytest.raises(ValueError, match="needs CUDA tensors"):
-        kba.assemble_cuda(win, pair, slot, HUB, OSUM)
+        kba.assemble_cuda(win, HUB, OSUM)
     with pytest.raises(ValueError, match="needs CUDA tensors"):
-        kba.energy_only_cuda(win, pair, slot, HUB, OSUM)
+        kba.energy_only_cuda(win, HUB, OSUM)
+    with pytest.raises(ValueError, match="unknown assemble mode"):
+        kba.assemble_cuda(win, HUB, OSUM, "energy")
     meta = Window(*(t.to("meta") for t in win))
-    mp, ms = pair.to("meta"), slot.to("meta")
     with pytest.raises(ValueError, match="tensors on meta and cpu"):
-        kba.assemble_cuda(meta._replace(p_uv=win.p_uv), mp, ms, HUB, OSUM)
+        kba.assemble_cuda(meta._replace(p_uv=win.p_uv), HUB, OSUM)
     # the checks before the device's: dtype, shape, contiguity
     with pytest.raises(TypeError, match="p_host is torch.int64"):
-        kba._inputs(win._replace(p_host=win.p_host.long()), pair, slot)
+        kba._inputs(win._replace(p_host=win.p_host.long()))
     with pytest.raises(ValueError, match="p_uv is not contiguous"):
-        kba._inputs(win._replace(p_uv=torch.cat([win.p_uv, win.p_uv], 1)[:, :2]), pair, slot)
-    with pytest.raises(ValueError, match="pair has shape"):
-        kba._inputs(win, pair[..., :60].contiguous(), slot)
+        kba._inputs(win._replace(p_uv=torch.cat([win.p_uv, win.p_uv], 1)[:, :2]))
+    with pytest.raises(ValueError, match="res_mask has shape"):
+        kba._inputs(win._replace(res_mask=win.res_mask[:, :9].contiguous()))
+    with pytest.raises(ValueError, match="33 slots"):
+        kba._inputs(win._replace(images=torch.zeros(33, 4, 4, 3)))
 
 
 def test_slot_tables_are_the_plain_versions_values(window):
@@ -391,7 +641,7 @@ def test_wrapper_imports_without_nvcc():
     # nothing is built at import: no nvcc on PATH, no CUDA_HOME
     code = ("import ldso_tpu_torch.kernels.ba as k, ldso_tpu_torch.ba.solve, "
             "ldso_tpu_torch.kernels.cuda_build as b\n"
-            "assert k.LAUNCHES == 0 and k.reduce_table(10).shape[0] == 3656\n"
+            "assert k.LAUNCHES == 0 and k.index_table(10).shape[0] == 3656\n"
             "try:\n    b.nvcc()\nexcept RuntimeError:\n    pass\n"
             "else:\n    raise SystemExit('nvcc found')\n")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -509,6 +759,69 @@ def test_cuda_assemble_matches_plain(cuda, window, mode):
     rec = cs.check_ba(f"test window, {mode}", win, CFG, mode)      # ties, a bitwise repeat
     assert kba.LAUNCHES >= before + 2 * kba.PER_EVALUATION
     assert rec["hosts"] == len(SLOTS) + 1 and rec["num_res"] > 40_000
+    assert rec["table"]["entries"] == 0 and rec["table"]["slot_equal"], rec["table"]
+
+
+OTHER_SLOTS = {1: (0,), 3: (0, 2), 32: (0, 5, 11, 17, 25, 31)}
+
+
+def _other_window(F: int) -> dict:
+    return _window(seed=F, F=F, slots=OTHER_SLOTS[F], P=512, w=320, h=240)
+
+
+@pytest.mark.parametrize("F", [3, 32])
+def test_emulated_kernel_order_at_other_slot_counts(F):
+    # 3 slots (one pass) and MAX_SLOTS (6 valid of 32: two passes, the
+    # host blocks spread over the whole system)
+    win = _twin(_other_window(F))
+    emu = _emulate(win, "active")
+    plain = tres.assemble_torch(win, HUB, OSUM)
+    assert emu["num_res"] == int(plain.num_res) > 1000
+    for f in ("valid_pair", "oob_pair"):
+        assert torch.equal(emu[f], getattr(plain, f)), f
+    for f in ("H", "b", "H_xd", "H_dd", "b_d", "e_pair"):
+        _close(emu[f].numpy(), getattr(plain, f).numpy(), EMU_RTOL, EMU_ATOL_FRAC)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("F", [1, 3, 32])
+def test_cuda_assemble_at_other_slot_counts(cuda, F):
+    # 3 slots and MAX_SLOTS (6 valid among 32): the kernel against the
+    # plain version in both modes and energy_only, a bitwise repeat, its
+    # pair tables bit for bit. One slot: every residual is its point's own
+    # host's, projected through the identity, so its Jacobians cancel
+    # exactly (target8 + host8 = 0, and no pixel moves with the intrinsics
+    # or the inverse depth): H, b, H_xd, H_dd and b_d are rounding noise in
+    # both versions; held there: the masks, the count, the energy, e_pair,
+    # a bitwise repeat, finite outputs
+    win = _twin(_other_window(F), device=cuda)
+    if F > 1:
+        for mode in ("active", "fej", "energy"):
+            rec = cs.check_ba(f"{F} slots, {mode}", win, CFG, mode)
+            assert rec["num_res"] > 1000 and rec["slots"] == len(OTHER_SLOTS[F])
+            assert rec["table"]["entries"] == 0 and rec["table"]["slot_equal"], rec["table"]
+        return
+    k, p = tres.assemble(win, HUB, OSUM), tres.assemble_torch(win, HUB, OSUM)
+    again = tres.assemble(win, HUB, OSUM)
+    for f in k._fields:
+        assert cs._bits_equal(getattr(k, f), getattr(again, f)), f
+    assert int(k.num_res) == int(p.num_res) > 1000
+    assert torch.equal(k.valid_pair, p.valid_pair) and torch.equal(k.oob_pair, p.oob_pair)
+    np.testing.assert_allclose(float(k.energy), float(p.energy), rtol=cs.K4_E_RTOL)
+    _close(k.e_pair.cpu().numpy(), p.e_pair.cpu().numpy(), cs.K4_RTOL, cs.K4_ATOL_FRAC)
+    for f in ("H", "b", "H_xd", "H_dd", "b_d"):
+        assert bool(torch.isfinite(getattr(k, f)).all()), f
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("F", [1, 3, 10, 32])
+@pytest.mark.parametrize("angle", [1e-6, 1.0])
+def test_cuda_slot_tables_equal_plain(cuda, F, angle):
+    # the tables the kernel makes equal ba_slot_tables on the card bit for
+    # bit: the small-angle branch and the general one, one chain or split
+    win = _pose_window(F, angle, seed=F, device=cuda)
+    rec = cs.ba_table_compare(win)
+    assert rec["entries"] == 0 and rec["slot_equal"], rec
 
 
 @pytest.mark.gpu
