@@ -74,8 +74,13 @@ Phases, one result line each (any failure raises and exits non-zero):
      rows, rows that part only at a tie of the plain run's own numbers,
      at most TRACE_MAX_TIES a frame) and bit for bit against a second
      launch; on the two keyframes the activation kernel against
-     ``trace.activate_candidates_torch`` (``check_activate``) and a second
-     launch; on frame 60 and the first keyframe each kernel's device ms
+     ``trace.activate_candidates_torch`` (``check_activate``), a second
+     launch and, bit for bit, its order replayed in torch
+     (``activate_replay``); the slot tables each kernel makes against the
+     torch tables, bit for bit (``trace_table_compare``,
+     ``activation_table_compare``; phase 4 also counts 0 calls of
+     ``trace_slot_tables`` and ``activation_slot_tables`` on the main
+     path); on frame 60 and the first keyframe each kernel's device ms
      beside the bound this run's data needs and the plain version's ms, and
      the device kernels of one ``activate_candidates_device`` call of each
      version;
@@ -227,11 +232,12 @@ TRACK_PROFILE = tuple(range(40, 60))   # bench frames phase 4 traces with torch.
 TRACK_MAX_EVENTS = 50             # device kernels one track_frame call may take (42-44 seen)
 TRACK_LAUNCHES = 2                # tracker kernel launches a tracked frame: coarse, then fine
 # a regression gate, not a target: device kernels and copies one fused_step
-# may take. ~440 on the card (900 and more with the plain trace); of these
-# the tracker takes 42-44, the trace one launch and its slot tables ~85, the
-# prediction (one se3_log, 27 se3_exp) ~270, which stand between this and
-# the 200 the port aims at (ROADMAP)
-STEP_MAX_EVENTS = 470
+# may take. 352-353 on the card since the trace kernel makes its own slot
+# tables (~440 before, 900 and more with the plain trace); of these the
+# tracker takes 42-44, the trace one launch, the prediction (one se3_log, 27
+# se3_exp) ~270, which stands between this and the 200 the port aims at
+# (ROADMAP)
+STEP_MAX_EVENTS = 372
 # flops of one point evaluation in csrc/track_level.cu's evaluate: every
 # point xh 4, X 18, z test 2, projection 3 + 4, bounds 4, bilinear sample
 # 33, residual and Huber 9 (77); a point with omega > 0 also J 31 and the
@@ -265,14 +271,18 @@ TRACE_TIE_RTOL, TRACE_TIE_PX, TRACE_MAX_TIES, ACT_MAX_TIES = 1e-5, 1e-3, 4, 4
 # position 5 and per sweep point its bounds test 6; per sweep point of an
 # in-bounds sample the bilinear intensity 15, the difference, its square
 # and the sum 3; a GN step 8 x 45 (the (I, dx, dy) sample 37, residual,
-# gradient and products 8) + 25 (sums and step)
+# gradient and products 8) + 25 (sums and step); a slot's table row once
+# (lie.cuh's se3_exp times T_eval 240, the inverse 15, the product by
+# T_new_cw 84, the affine transfer 8: ~350)
 TRACE_FLOPS_ROW, TRACE_FLOPS_SAMPLE, TRACE_FLOPS_BOUNDS = 191, 5, 6
-TRACE_FLOPS_SAMPLE_IN, TRACE_FLOPS_GN = 18, 385
+TRACE_FLOPS_SAMPLE_IN, TRACE_FLOPS_GN, TRACE_FLOPS_SLOT = 18, 385, 350
 # flops of its activate_bank, per evaluation of a candidate row: a sample
 # of a valid target slot, its projection and bounds test 32; an in-bounds
 # sample's (I, dx, dy) 37, residual, Jd, Huber weight and the four terms
-# 27; a slot's four 8-point sums and their addition 32
-ACT_FLOPS_SAMPLE, ACT_FLOPS_IN, ACT_FLOPS_SLOT = 32, 64, 32
+# 27; a slot's four 8-point sums and their addition 32; an entry of the
+# [F, F] tables once (the product 84, the affine transfer 4, with the
+# slots' inverses and gains)
+ACT_FLOPS_SAMPLE, ACT_FLOPS_IN, ACT_FLOPS_SLOT, ACT_FLOPS_PAIR = 32, 64, 32, 100
 # the BA linearization kernel against its plain version (phase 4d), on the
 # windows of the first ACT_KEEP run_ba calls after bench frame ACT_AFTER and
 # of one marginalize_points call that folds. The kernel sums in another
@@ -795,20 +805,36 @@ def ba_split(events, out: dict, labels) -> dict:
     return split
 
 
+def _hand_launches() -> int:
+    """Launches of every hand kernel so far, by their wrappers' counters."""
+    from ldso_tpu_torch.kernels import ba, pallas_pyramid, track_level
+    from ldso_tpu_torch.kernels import trace as trace_kernel
+
+    return (pallas_pyramid.LAUNCHES + track_level.LAUNCHES + trace_kernel.LAUNCHES_TRACE
+            + trace_kernel.LAUNCHES_ACTIVATE + ba.LAUNCHES)
+
+
 def _device_events(fn) -> tuple:
     """(device events, their device ms) of one call of ``fn`` (warmed up
-    once first), read from torch.profiler: every kernel, copy and set."""
+    once first): torch.profiler's kernels, copies and sets, in which the
+    hand kernels count by their wrappers' launch counters read around the
+    same profiled call (the profiler has been seen to miss a lone ctypes
+    launch); the ms are those of the events the profiler saw."""
     import torch
     from torch.autograd import DeviceType
 
     fn()
     torch.cuda.synchronize()
     act = torch.profiler.ProfilerActivity
+    hand = [k for names in BenchProbe.KERNELS.values() for k in names]
+    n0 = _hand_launches()
     with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+    launched = _hand_launches() - n0
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    return len(dev), sum(e.device_time_total for e in dev) / 1e3
+    torch_ops = [e for e in dev if not any(k in e.name for k in hand)]
+    return len(torch_ops) + launched, sum(e.device_time_total for e in dev) / 1e3
 
 
 @contextlib.contextmanager
@@ -1316,6 +1342,23 @@ def _bits_equal(a, b) -> bool:
     return torch.equal(a, b)
 
 
+def fma32(a, b, c):
+    """float32 fused multiply-add, exactly rounded, in torch ops on any
+    device: the float64 product of two float32 is exact, the float64 sum is
+    taken to round-to-odd (its error by TwoSum), then rounded once to
+    float32."""
+    import torch
+
+    a, b, c = torch.broadcast_tensors(a, b, c)
+    p, cc = a.double() * b.double(), c.double()
+    s = p + cc
+    bb = s - p
+    err = (p - (s - bb)) + (cc - bb)
+    even = (s.view(torch.int64) & 1) == 0
+    s = torch.where((err != 0) & even, torch.nextafter(s, s + err), s)
+    return s.float()
+
+
 def _close(a, b, rtol: float, atol: float):
     """|a - b| <= atol + rtol |b|, NaN equal to NaN, infinities equal."""
     import torch
@@ -1330,12 +1373,14 @@ def trace_bound_ms(args, rep: dict) -> tuple:
     written once (21 B a row); an invalid row reads its valid flag and the
     20 B it copies through; a valid row reads what the trace uses (valid,
     host_slot, uv, color, the interval and the strikes: 57 B; its quality
-    and status it overwrites unread); the slot tables; the distinct texels
-    of the valid rows' in-bounds sweep samples at 4 B (intensity) and, for
-    the rows whose status the refine can decide (not OOB, SKIPPED or over
-    the energy gate), of the refine's and g_along's samples at 12 B
-    (I, dx, dy). Operations (csrc/trace.cu, counted per row as one thread
-    does them): TRACE_FLOPS_ROW a valid row, TRACE_FLOPS_SAMPLE a sample
+    and status it overwrites unread); the window's state the slot tables
+    are made from (T_eval, x, exposure: 25 floats a slot; T_new_cw, ab_abs;
+    intr); the distinct texels of the valid rows' in-bounds sweep samples
+    at 4 B (intensity) and, for the rows whose status the refine can decide
+    (not OOB, SKIPPED or over the energy gate), of the refine's and
+    g_along's samples at 12 B (I, dx, dy). Operations (csrc/trace.cu,
+    counted as one thread does them): TRACE_FLOPS_SLOT a slot's table row,
+    TRACE_FLOPS_ROW a valid row, TRACE_FLOPS_SAMPLE a sample
     (TRACE_FLOPS_SAMPLE_IN more per sweep point of an in-bounds sample),
     TRACE_FLOPS_GN a GN step of a row the refine can decide. ``rep`` is
     ``trace_details``'. Returns (ms, bound_by, bytes, flops)."""
@@ -1366,15 +1411,76 @@ def trace_bound_ms(args, rep: dict) -> tuple:
                        + [corners(rep["positions"][-1][refined]).flatten()]).unique()
     only_sweep = int(sweep.numel()) - int(torch.isin(sweep, refine).sum())
     n_valid, n_in, n_ref = int(valid.sum()), int(inb.sum()), int(refined.sum())
-    n_bytes = (21 * n + 57 * n_valid + 21 * (n - n_valid) + F * 18 * 4 + 16
+    n_bytes = (21 * n + 57 * n_valid + 21 * (n - n_valid) + 4 * (25 * F + 18) + 16
                + 4 * kw["num_samples"] + 4 * only_sweep + 12 * int(refine.numel()))
     s = rep["samp"].shape[2]
-    flops = (n_valid * TRACE_FLOPS_ROW + n_ref * kw["gn_iters"] * TRACE_FLOPS_GN
+    flops = (F * TRACE_FLOPS_SLOT + n_valid * TRACE_FLOPS_ROW
+             + n_ref * kw["gn_iters"] * TRACE_FLOPS_GN
              + n_valid * kw["num_samples"] * (TRACE_FLOPS_SAMPLE + TRACE_FLOPS_BOUNDS * s)
              + n_in * TRACE_FLOPS_SAMPLE_IN * s)
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
     return (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
             n_bytes, flops)
+
+
+def _trace_state(args) -> tuple:
+    """``kernels/trace.trace_bank_cuda``'s positional arguments from
+    ``frame_step._trace_core``'s, contiguous."""
+    from ldso_tpu_torch.core.bank import Bank
+
+    img3, bank, T_eval, x, expo_all, T_new_cw, ab_abs, expo_new, intr, _ = args
+    return (img3.contiguous(), Bank(*(f.contiguous() for f in bank)), T_eval.contiguous(),
+            x.contiguous(), expo_all.contiguous(), T_new_cw.contiguous(), ab_abs.contiguous(),
+            expo_new, intr.contiguous())
+
+
+def _table_diff(fields, kernel, plain) -> dict:
+    """Named tables, the kernel's against the plain version's: the entries
+    whose bits differ, each table's count and largest distance in ulps (a
+    zero of the other sign counts, at 0 ulps)."""
+    import torch
+
+    rec, n_all = dict(entries=0, max_ulps=0, fields={}), 0
+    for field, k, p in zip(fields, kernel, plain):
+        p = p.contiguous()
+        ne = k.contiguous().view(torch.int32) != p.view(torch.int32)
+        ulps = int((_ordered(k) - _ordered(p)).abs().max())
+        n, n_all = int(ne.sum()), n_all + ne.numel()
+        rec["entries"] += n
+        rec["max_ulps"] = max(rec["max_ulps"], ulps)
+        if n:
+            rec["fields"][field] = (n, ulps)
+    rec["of"] = n_all
+    return rec
+
+
+def trace_table_compare(args) -> dict:
+    """The slot tables the trace kernel makes (its debug output,
+    ``kernels/trace.trace_tables_cuda``) against
+    ``frame_step.trace_slot_tables`` on the same ``_trace_core`` arguments:
+    ``_table_diff``'s record."""
+    from ldso_tpu_torch import frame_step
+    from ldso_tpu_torch.kernels import trace as ktr
+
+    state = _trace_state(args)
+    kern = ktr.trace_tables_cuda(*state, **frame_step._trace_kw(args[-1]))
+    plain = frame_step.trace_slot_tables(*state[2:8])
+    return _table_diff(("T_hn", "ab"), kern, plain)
+
+
+def activation_table_compare(call) -> dict:
+    """The tables the activation kernel makes (its debug output,
+    ``kernels/trace.activation_tables_cuda``) against
+    ``trace.activation_slot_tables`` on the same arguments (``call`` =
+    (args, kwargs) of ``trace.activate_candidates_device``):
+    ``_table_diff``'s record."""
+    from ldso_tpu_torch import trace as tm
+    from ldso_tpu_torch.kernels import trace as ktr
+
+    args, kw = call
+    kern = ktr.activation_tables_cuda(*_act_state(args), **kw)
+    plain = tm.activation_slot_tables(args[2], args[3], args[4])
+    return _table_diff(("T_rel", "alpha", "beta"), kern, plain)
 
 
 def check_trace(name: str, args, time_it: bool = False) -> dict:
@@ -1393,12 +1499,11 @@ def check_trace(name: str, args, time_it: bool = False) -> dict:
     from ldso_tpu_torch import trace as tm
     from ldso_tpu_torch.kernels import trace as ktr
 
-    img3, bank, T_eval, x, expo_all, T_new_cw, ab_abs, expo_new, intr, cfg = args
-    T_hn, ab = frame_step.trace_slot_tables(T_eval, x, expo_all, T_new_cw, ab_abs, expo_new)
-    kw = frame_step._trace_kw(cfg)
+    state, kw = _trace_state(args), frame_step._trace_kw(args[-1])
+    bank = args[1]
 
     def launch(debug=True):
-        return ktr.trace_bank_cuda(img3, bank, T_hn, ab, intr, debug=debug, **kw)
+        return ktr.trace_bank_cuda(*state, debug=debug, **kw)
 
     out_k, again = launch(), launch()
     for field, a, b in zip(ktr.TraceBankOut._fields, out_k, again):
@@ -1443,8 +1548,12 @@ def check_trace(name: str, args, time_it: bool = False) -> dict:
                  / plain.quality.abs().clamp(min=1e-12))[both].nan_to_num(0.0).max()) \
         if bool(both.any()) else 0.0
     counts = torch.bincount(rep["status"][valid].long(), minlength=6).tolist()
+    table = trace_table_compare(args)
+    if table["entries"]:
+        raise RuntimeError(f"trace kernel on {name}: {_table_text(table)}")
     rec = dict(rows=bank.uv.shape[0], valid=int(valid.sum()), status=counts[:5],
-               ties_found=int(tie.sum()), parted=n_parted, e_abs=e_abs, e_quality=e_q)
+               ties_found=int(tie.sum()), parted=n_parted, e_abs=e_abs, e_quality=e_q,
+               table=table)
     if time_it:
         rec["ms"] = _device_ms(lambda: launch(debug=False))
         rec["plain_ms"] = _time_ms(lambda: frame_step._trace_core_torch(*args), reps=5,
@@ -1471,11 +1580,13 @@ def activate_bound_ms(call, det: dict) -> tuple:
     written once (17 B); what the candidate test reads, in its order
     (valid, then the status of a valid row, the quality of a GOOD one, the
     interval of one above min_quality: 1 to 17 B); a candidate's uv, color
-    and host slot (44 B); the slot tables; the distinct texels of the
-    in-bounds samples of the 1 + iters evaluations at 12 B. Operations
-    (csrc/trace.cu): ACT_FLOPS_SAMPLE for each sample of a valid target
-    slot, ACT_FLOPS_IN more for each in-bounds one, ACT_FLOPS_SLOT a slot's
-    sums, per evaluation of a candidate row. ``det`` is the plain version's
+    and host slot (44 B); the slots' poses and state the tables are made
+    from (rows 0-2 of T_all, a, b, exposure, frame_valid); the distinct
+    texels of the in-bounds samples of the 1 + iters evaluations at 12 B.
+    Operations (csrc/trace.cu): ACT_FLOPS_PAIR an entry of the [F, F]
+    tables once; ACT_FLOPS_SAMPLE for each sample of a valid target slot,
+    ACT_FLOPS_IN more for each in-bounds one, ACT_FLOPS_SLOT a slot's sums,
+    per evaluation of a candidate row. ``det`` is the plain version's
     ``details`` and ``can``. Returns (ms, bound_by, bytes, flops)."""
     import torch
 
@@ -1501,12 +1612,108 @@ def activate_bound_ms(call, det: dict) -> tuple:
     good = bank.valid & (bank.last_status == tm.GOOD)
     n_test = (n + 4 * int(bank.valid.sum()) + 4 * int(good.sum())
               + 8 * int((good & (bank.quality > min_q)).sum()))
-    n_bytes = 17 * n + n_test + 44 * int(can.sum()) + F * F * 18 * 4 + F + 16 + 12 * n_texels
-    flops = n_evals * (ACT_FLOPS_SAMPLE * 8 * int(ok_f.sum())
+    n_bytes = 17 * n + n_test + 44 * int(can.sum()) + 4 * 15 * F + F + 16 + 12 * n_texels
+    flops = F * F * ACT_FLOPS_PAIR + n_evals * (ACT_FLOPS_SAMPLE * 8 * int(ok_f.sum())
                        + ACT_FLOPS_SLOT * F * int(ok_f.any(1).sum())) + ACT_FLOPS_IN * n_in
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
     return (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
             n_bytes, flops)
+
+
+def _act_state(args) -> tuple:
+    """``kernels/trace.activate_bank_cuda``'s positional arguments from
+    ``trace.activate_candidates_device``'s, contiguous."""
+    win_images, frame_valid, T_all, x, expo_all, bank, intr, min_q = args
+    return (win_images.contiguous(), frame_valid.contiguous(), T_all.contiguous(),
+            x.contiguous(), expo_all.contiguous(), type(bank)(*(f.contiguous() for f in bank)),
+            intr.contiguous(), min_q)
+
+
+def activate_replay(call) -> dict:
+    """The activation kernel's arithmetic (csrc/trace.cu activate_bank), in
+    torch ops in its order, on the tables of ``trace.activation_slot_tables``
+    (``call`` = (args, kwargs) of ``trace.activate_candidates_device``):
+    each sample's terms operator by operator (the projection's two
+    fused multiply-adds exact, ``fma32``), each slot's 8 points by the tree
+    ((x0 + x4) + (x2 + x6)) + ((x1 + x5) + (x3 + x7)), then the slots' sums
+    added in slot order from 0, the order of the JAX package's loop and of
+    the kernel since it was ported. Where the kernel's tables equal the
+    plain version's (``activation_table_compare``), the kernel's outputs
+    equal these bit for bit. Returns ``activate_candidates_torch``'s dict."""
+    import torch
+
+    from ldso_tpu_torch import trace as tm
+    from ldso_tpu_torch.core.window import pattern
+
+    (win_images, frame_valid, T_all, x, expo, bank, intr, min_q), kw = call
+    iters, huber = kw.get("iters", 3), kw.get("huber_th", 9.0)
+    F, h, w = win_images.shape[0], win_images.shape[1], win_images.shape[2]
+    dev = win_images.device
+    T_rel, alpha, beta = tm.activation_slot_tables(T_all, x, expo)
+    can = (bank.valid & (bank.last_status == tm.GOOD) & (bank.quality > min_q)
+           & ~torch.isnan(bank.idepth_max) & ((bank.idepth_max + bank.idepth_min) > 0))
+    d = torch.clamp(0.5 * (torch.where(can, bank.idepth_min, 0.0)
+                           + torch.where(can, bank.idepth_max, 1.0)), 1e-3, 50.0)
+    hs = bank.host_slot.long().clamp(0, F - 1)
+    fr = torch.arange(F, device=dev)
+    act = frame_valid[None, :] & (fr[None, :] != hs[:, None]) & can[:, None]     # [N, F]
+    T = T_rel[:, hs].transpose(0, 1)[:, :, :, :, None]                            # [N, F, 4, 4, 1]
+    a, be = alpha[:, hs].T[..., None], beta[:, hs].T[..., None]                   # [N, F, 1]
+    fx, fy, cx, cy = intr[0], intr[1], intr[2], intr[3]
+    pat = pattern(dev)
+    xh0 = (((bank.uv[:, 0:1] + pat[None, :, 0]) - cx) / fx)[:, None, :]           # [N, 1, 8]
+    xh1 = (((bank.uv[:, 1:2] + pat[None, :, 1]) - cy) / fy)[:, None, :]
+    color = bank.color[:, None, :]
+    flat = win_images.reshape(-1, 3)
+    huber_t = torch.tensor(huber, dtype=torch.float32, device=dev)
+
+    def tree8(v):
+        return (((v[..., 0] + v[..., 4]) + (v[..., 2] + v[..., 6]))
+                + ((v[..., 1] + v[..., 5]) + (v[..., 3] + v[..., 7])))
+
+    def in_order(s):
+        acc = torch.zeros_like(s[:, 0])
+        for f in range(F):
+            acc = acc + s[:, f]
+        return acc
+
+    def evaluate(d):
+        X = [(T[:, :, i, 2] + fma32(T[:, :, i, 1], xh1, T[:, :, i, 0] * xh0))
+             + T[:, :, i, 3] * d[:, None, None] for i in range(3)]
+        okz = X[2] > 1e-6
+        zs = torch.where(okz, X[2], 1.0)
+        up, vp = X[0] / zs, X[1] / zs
+        un, vn = fx * up + cx, fy * vp + cy
+        inb = (okz & (un >= 2.0) & (un < w - 3.0) & (vn >= 2.0) & (vn < h - 3.0)
+               & act[..., None])
+        un, vn = torch.where(inb, un, 2.0), torch.where(inb, vn, 2.0)
+        iu, iv = un.floor(), vn.floor()
+        du, dv = un - iu, vn - iv
+        u0, v0 = iu.long().clamp(0, w - 1), iv.long().clamp(0, h - 1)
+        u1, v1 = (u0 + 1).clamp(max=w - 1), (v0 + 1).clamp(max=h - 1)
+        base = fr[None, :, None] * (h * w)
+        c00, c10 = flat[base + v0 * w + u0], flat[base + v0 * w + u1]
+        c01, c11 = flat[base + v1 * w + u0], flat[base + v1 * w + u1]
+        du, dv = du[..., None], dv[..., None]
+        top = c00 * (1.0 - du) + c10 * du
+        bot = c01 * (1.0 - du) + c11 * du
+        hit = top * (1.0 - dv) + bot * dv
+        res = (hit[..., 0] - a * color) - be
+        dre = 1.0 / zs
+        Jd = (hit[..., 1] * ((fx * dre) * (T[:, :, 0, 3] - T[:, :, 2, 3] * up))
+              + hit[..., 2] * ((fy * dre) * (T[:, :, 1, 3] - T[:, :, 2, 3] * vp)))
+        ar = res.abs()
+        hw = torch.where(ar < huber_t, 1.0, huber_t / torch.clamp(ar, min=1e-12))
+        zero = torch.zeros_like(res)
+        terms = ((hw * Jd) * Jd, (hw * Jd) * res, ((hw * res) * res) * (2.0 - hw),
+                 torch.ones_like(res))
+        return [in_order(tree8(torch.where(inb, t, zero))) for t in terms]
+
+    for _ in range(iters):
+        Hd, bd, _, _ = evaluate(d)
+        d = torch.clamp(d - bd / (Hd + 1e-6), 1e-5, 50.0)
+    Hd, _, E, cnt = evaluate(d)
+    return dict(idepth=d, H_dd=Hd, energy=E, count=cnt, can=can)
 
 
 def check_activate(name: str, call, time_it: bool = False) -> dict:
@@ -1525,17 +1732,25 @@ def check_activate(name: str, call, time_it: bool = False) -> dict:
     from ldso_tpu_torch.kernels import trace as ktr
 
     args, kw = call
-    win_images, frame_valid, T_all, x_affine, expo_all, bank, intr, min_q = args
-    T_rel, alpha, beta = tm.activation_slot_tables(T_all, x_affine, expo_all)
+    win_images, frame_valid, bank = args[0], args[1], args[5]
+    state = _act_state(args)
 
     def launch():
-        return ktr.activate_bank_cuda(win_images, frame_valid, T_rel, alpha, beta, bank, intr,
-                                      min_q, **kw)
+        return ktr.activate_bank_cuda(*state, **kw)
 
     out_k, again = launch(), launch()
     for key in out_k:
         if not _bits_equal(out_k[key], again[key]):
             raise RuntimeError(f"activation kernel on {name}: two launches differ in {key}")
+    replay = activate_replay(call)
+    for key in out_k:
+        if not _bits_equal(out_k[key], replay[key]):
+            raise RuntimeError(
+                f"activation kernel on {name}: {key} differs from the kernel's order replayed "
+                f"in torch (activate_replay) on {int((out_k[key] != replay[key]).sum())} rows")
+    table = activation_table_compare(call)
+    if table["entries"]:
+        raise RuntimeError(f"activation kernel on {name}: {_table_text(table)}")
     det = {}
     out_p = tm.activate_candidates_torch(*args, **kw, details=det)
     det["can"] = out_p["can"]
@@ -1578,7 +1793,7 @@ def check_activate(name: str, call, time_it: bool = False) -> dict:
                slots=int(frame_valid.sum()), ties_found=int(tie.sum()), parted=n_parted,
                e_idepth=rel("idepth"), e_H=rel("H_dd"), e_E=rel("energy"),
                e_abs=float((out_k["idepth"] - out_p["idepth"])[can].abs().max())
-               if bool(can.any()) else 0.0)
+               if bool(can.any()) else 0.0, table=table)
     if time_it:
         rec["ms"] = _device_ms(launch)
         rec["plain_ms"] = _time_ms(lambda: tm.activate_candidates_torch(*args, **kw), reps=5,
@@ -1640,12 +1855,14 @@ def count_calls(obj, name: str):
 
 
 def _table_text(t: dict) -> str:
-    """``ba_table_compare``'s record as text."""
-    if not t["entries"] and t["slot_equal"]:
-        return f"pair tables bit for bit ({t['of']} entries)"
-    return (f"pair tables: {t['entries']} of {t['of']} entries differ (max {t['max_ulps']} ulps; "
+    """``ba_table_compare``'s or ``_table_diff``'s record as text."""
+    slot = t.get("slot_equal", True)
+    if not t["entries"] and slot:
+        return f"tables bit for bit ({t['of']} entries)"
+    return (f"tables: {t['entries']} of {t['of']} entries differ (max {t['max_ulps']} ulps; "
             + ", ".join(f"{k} {n} at up to {u} ulps" for k, (n, u) in t["fields"].items())
-            + f"), slot table {'equal' if t['slot_equal'] else 'DIFFERS'}")
+            + ")" + ("" if "slot_equal" not in t
+                     else f", slot table {'equal' if slot else 'DIFFERS'}"))
 
 
 def _check_ba_launches(phase: str, launched: int, evals: int) -> None:
@@ -1851,26 +2068,19 @@ def _ordered(t):
 def ba_table_compare(win) -> dict:
     """The pair and slot tables the BA kernel makes (its debug output,
     ``kernels/ba.slot_tables_cuda``) against ``residuals.ba_slot_tables``
-    on the same window: the entries whose bits differ, each field's count
-    and largest distance in ulps (a zero of the other sign counts, at 0
-    ulps), and whether the slot tables are equal bit for bit."""
-    import torch
-
+    on the same window: ``_table_diff``'s record over the pair table's
+    fields, and whether the slot tables are equal bit for bit."""
     from ldso_tpu_torch.ba import residuals as res
     from ldso_tpu_torch.kernels import ba as kba
 
     pair_k, slot_k = kba.slot_tables_cuda(res._contiguous(win))
     pair_p, slot_p = res.ba_slot_tables(win)
-    ne = pair_k.view(torch.int32) != pair_p.contiguous().view(torch.int32)
-    ulps = (_ordered(pair_k) - _ordered(pair_p)).abs()
-    fields = {}
-    for field, lo, hi in (("R_cur", 0, 9), ("t_cur", 9, 12), ("R_fej", 12, 21), ("t_fej", 21, 24),
-                          ("adj_fej", 24, 60), ("alpha_cur", 60, 61), ("alpha_fej", 61, 62)):
-        n = int(ne[..., lo:hi].sum())
-        if n:
-            fields[field] = (n, int(ulps[..., lo:hi].max()))
-    return dict(entries=int(ne.sum()), of=int(ne.numel()), max_ulps=int(ulps.max()),
-                fields=fields, slot_equal=_bits_equal(slot_k, slot_p.contiguous()))
+    fields = (("R_cur", 0, 9), ("t_cur", 9, 12), ("R_fej", 12, 21), ("t_fej", 21, 24),
+              ("adj_fej", 24, 60), ("alpha_cur", 60, 61), ("alpha_fej", 61, 62))
+    rec = _table_diff([f for f, _, _ in fields], [pair_k[..., lo:hi] for _, lo, hi in fields],
+                      [pair_p[..., lo:hi] for _, lo, hi in fields])
+    rec["slot_equal"] = _bits_equal(slot_k, slot_p.contiguous())
+    return rec
 
 
 def check_ba(name: str, win, cfg, mode: str, time_it: bool = False) -> dict:
@@ -3017,8 +3227,18 @@ def main() -> int:
     trace_kernel.reset_launches()
     ba_kernel.reset_launches()
     probe = BenchProbe(TRACK_CAPTURE, TRACK_PROFILE)
-    with count_keyframes() as kf_main, count_ba() as ba_main_evals:
+    from ldso_tpu_torch import frame_step as fs_mod
+    from ldso_tpu_torch import trace as tr_mod
+
+    with count_keyframes() as kf_main, count_ba() as ba_main_evals, \
+            count_calls(fs_mod, "trace_slot_tables") as trace_tables_main, \
+            count_calls(tr_mod, "activation_slot_tables") as act_tables_main:
         main = drive_bench(preset("default"), ds, frames, dev, sync=sync, probe=probe)
+    # the kernels make their slot tables: the torch yardsticks run 0 times
+    if trace_tables_main[0] or act_tables_main[0]:
+        raise RuntimeError(f"phase 4: the kernel path called trace_slot_tables "
+                           f"{trace_tables_main[0]} times, activation_slot_tables "
+                           f"{act_tables_main[0]} times")
     launches_main = pallas_pyramid.LAUNCHES
     track_main = track_level.LAUNCHES
     trace_main, act_main = trace_kernel.LAUNCHES_TRACE, trace_kernel.LAUNCHES_ACTIVATE
@@ -3040,7 +3260,9 @@ def main() -> int:
           f"out; host clock, synchronized per frame), pyramid launches {launches_main}, "
           f"tracker launches {track_main} ({TRACK_LAUNCHES} per tracked frame), trace launches "
           f"{trace_main} (1 per tracked frame), activation launches {act_main} (1 per "
-          f"keyframe built, {kf_main[0]}), BA kernel launches {ba_main} "
+          f"keyframe built, {kf_main[0]}; trace_slot_tables / activation_slot_tables "
+          f"called {trace_tables_main[0]} / {act_tables_main[0]} times), BA kernel launches "
+          f"{ba_main} "
           f"({ba_kernel.PER_EVALUATION} per evaluation, {ba_main_evals[0]} evaluations), phase "
           f"wall time {time.perf_counter() - t_phase:.1f} s | {card}", flush=True)
     prof = probe.summary()
@@ -3182,7 +3404,8 @@ def main() -> int:
               f"{r['ties_found']}; at most {TRACE_MAX_TIES}), bitwise equal in a second launch "
               f"(bounds: atol {TRACE_ATOL} + rtol {TRACE_RTOL}, best_uv {TRACE_UV_ATOL} px on "
               f"GOOD rows; ties within rtol {TRACE_TIE_RTOL} of a threshold or {TRACE_TIE_PX} px"
-              f" of the border) | {card}", flush=True)
+              f" of the border); slot {_table_text(r['table'])} against trace_slot_tables "
+              f"| {card}", flush=True)
     tr = trace_recs[mid]
     print(f"kernel trace timing [bench frame {mid}, one launch]: device {tr['ms']:.4f} ms "
           f"(queued behind a spin kernel), plain _trace_core_torch {tr['plain_ms']:.4f} ms "
@@ -3199,8 +3422,9 @@ def main() -> int:
               f"{r['e_H']:.3g}, energy rel {r['e_E']:.3g}, rows parted at a tie "
               f"{r['parted']} (ties found {r['ties_found']}; at most {ACT_MAX_TIES}), bitwise "
               f"equal in a second launch (bounds: idepth atol {ACT_IDEPTH_ATOL} + rtol "
-              f"{ACT_IDEPTH_RTOL}, sums atol {ACT_SUM_ATOL} + rtol {ACT_SUM_RTOL}, count equal) "
-              f"| {card}", flush=True)
+              f"{ACT_IDEPTH_RTOL}, sums atol {ACT_SUM_ATOL} + rtol {ACT_SUM_RTOL}, count equal), "
+              f"bit for bit the kernel's order replayed in torch (activate_replay); "
+              f"{_table_text(r['table'])} against activation_slot_tables | {card}", flush=True)
     ar = act_recs[0]
     args_a, kw_a = probe.activations[0]
     n_act, ms_act = _device_events(lambda: trace_mod.activate_candidates_device(*args_a, **kw_a))
@@ -3486,6 +3710,8 @@ def main() -> int:
         "ms": tr["ms"], "ms_is": f"device, one launch on bench frame {mid}",
         "plain_ms": tr["plain_ms"], "bound_ms": tr["bound_ms"], "bound_by": tr["bound_by"],
         "library_ms": None, "launches_per_frame": 1,
+        "table_entries_differ": sum(r["table"]["entries"] for r in trace_recs.values()),
+        "slot_table_calls": trace_tables_main[0],
         "fused_step_kernels": n_step, "fused_step_kernels_plain": n_step_pp,
         "trace_host_ms_per_frame": prof["trace"]["host_ms"],
         "trace_device_ms_per_frame": prof["trace"]["device_ms"]}, {
@@ -3497,6 +3723,8 @@ def main() -> int:
         "ms": ar["ms"], "ms_is": f"device, one launch on keyframe 1 after bench frame "
         f"{ACT_AFTER}", "plain_ms": ar["plain_ms"], "bound_ms": ar["bound_ms"],
         "bound_by": ar["bound_by"], "library_ms": None, "launches_per_keyframe": 1,
+        "table_entries_differ": sum(r["table"]["entries"] for r in act_recs),
+        "slot_table_calls": act_tables_main[0], "replay_bitwise": True,
         "call_kernels": n_act, "call_kernels_plain": n_act_p}, {
         "name": "ba_assemble", "route": "cuda", "source": "ldso_tpu_torch/csrc/ba.cu",
         "replaces": "ldso_tpu/ba/residuals.py:153",

@@ -35,16 +35,13 @@
 // x, x_zero and exposure, in torch's operation order on the card, so that
 // they equal ba/residuals.ba_slot_tables bit for bit: each CTA first makes
 // the per-slot table in shared memory (a thread a slot: se3_exp of x[:6]
-// as lie.so3_exp / so3_left_jacobian write it, with its small-angle branch,
-// times T_eval, the two inverses, the exposures), then each lane makes its
-// own (host, target) entry from two slots' rows when its sample needs it
-// (rel = T_t T_h^-1, the adjoint's hat(t) R, the affine quotients). So no
-// [F, F] table is stored and any F up to kMaxSlots takes the same route;
-// the 8 lanes of a slot group make the same entry in step. torch's small
-// matrix products run in cuBLAS, which accumulates a dot product by fused
-// multiply-adds in index order from zero, in one chain or, for some
-// shapes, in two (Rules); its 3-value sum (torch.sum of phi * phi) adds
-// (x0 + x2) + x1. Both are written out (dot3, dot4), and the file is built
+// times T_eval and the two inverses, lie.cuh's expressions, the
+// exposures), then each lane makes its own (host, target) entry from two
+// slots' rows when its sample needs it (rel = T_t T_h^-1, the adjoint's
+// hat(t) R, the affine quotients). So no [F, F] table is stored and any F
+// up to kMaxSlots takes the same route; the 8 lanes of a slot group make
+// the same entry in step. How torch's small products and its 3-value sum
+// round on the card is lie.cuh's (dot3, dot4, Rules); the file is built
 // with -fmad=false (kernels/ba.py) so that nvcc contracts nothing else. A
 // debug pointer, when given, receives the whole table from CTA 0 (the
 // tests hold it to ba_slot_tables).
@@ -110,7 +107,11 @@
 #include <math.h>
 #include <utility>
 
+#include "lie.cuh"
+
 namespace {
+
+using lie::dot3;
 
 constexpr int kWarps = 16;                  // tasks a tile
 constexpr int kThreads = 32 * kWarps;
@@ -220,89 +221,18 @@ __device__ __forceinline__ void sample3(const float* __restrict__ img, int W, in
   }
 }
 
-// a dot product as cuBLAS accumulates it: fused multiply-adds in index
-// order from +0 (the start shows only in the sign of an exact zero); or,
-// ``split``, the terms 0-1 and the rest in two such chains, then added
-__device__ __forceinline__ float dot3(float a0, float b0, float a1, float b1, float a2, float b2,
-                                      bool split = false) {
-  const float h = fmaf(a1, b1, fmaf(a0, b0, 0.f));
-  return split ? h + fmaf(a2, b2, 0.f) : fmaf(a2, b2, h);
-}
-
-__device__ __forceinline__ float dot4(float a0, float b0, float a1, float b1, float a2, float b2,
-                                      float a3, float b3, bool split = false) {
-  const float h = fmaf(a1, b1, fmaf(a0, b0, 0.f));
-  return split ? h + fmaf(a3, b3, fmaf(a2, b2, 0.f)) : fmaf(a3, b3, fmaf(a2, b2, h));
-}
-
-// which of torch's small products cuBLAS (CUDA 12.8, H100) sums split, read
-// off its results (tests/test_torch_ba_kernel.py holds the table to
-// ba_slot_tables at F = 1, 3, 10, 32): a batch of one matrix (F = 1: the
-// slot products; the [F, F] adjoints) and the einsum's single product at
-// F <= 4 (4F x 4 by 4 x 4F) split; the exponential's V rho always; every
-// other batched product chains
-struct Rules {
-  bool slot, vrho, rel, adj;
-};
-
-__device__ __forceinline__ Rules rules(int F) { return Rules{F == 1, true, F <= 4, F == 1}; }
-
-// rows 0-2 of an SE(3) inverse (lie.se3_inverse: [R^T, -(R^T t)]) from
-// rows 0-2 of T, 4 columns each
-__device__ __forceinline__ void inverse34(const float* T, float* out, bool split) {
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-#pragma unroll
-    for (int j = 0; j < 3; ++j) out[4 * i + j] = T[4 * j + i];
-    out[4 * i + 3] = -dot3(T[i], T[3], T[4 + i], T[7], T[8 + i], T[11], split);
-  }
-}
-
 // slot f's entry of the per-slot table: T_cur = se3_exp(x[f, :6]) T_eval[f]
-// (lie.se3_exp over so3_exp, _sinc_coeffs and so3_left_jacobian, in torch's
-// order), the inverses, the exposure gains exposure e^a at the current and
+// (lie.cuh), the inverses, the exposure gains exposure e^a at the current and
 // the FEJ state, b and b_zero
 __device__ void slot_entry(const Params& p, int f, float* s) {
-  const Rules ru = rules(p.F);
+  const lie::Rules ru = lie::rules(p.F);
   const float* xi = p.x + 8 * f;
-  const float r0 = xi[0], r1 = xi[1], r2 = xi[2], p0 = xi[3], p1 = xi[4], p2 = xi[5];
-  const float q0 = p0 * p0, q1 = p1 * p1, q2 = p2 * p2;
-  const float tsq = (q0 + q2) + q1;                     // torch.sum(phi * phi, -1) on the card
-  const bool small = tsq < 1e-8f;
-  const float safe = small ? 1.f : tsq;
-  const float th = sqrtf(safe);
-  const float sn = sinf(th), cs = cosf(th);
-  // x / k for a python float k is x * (1 / k) in torch's kernel
-  const float A = small ? 1.f - tsq * (1.f / 6.f) : sn / th;
-  const float B = small ? 0.5f - tsq * (1.f / 24.f) : (1.f - cs) / safe;
-  const float C = small ? (1.f / 6.f) - tsq * (1.f / 120.f) : (th - sn) / (safe * th);
-  const float K[3][3] = {{0.f, -p2, p1}, {p2, 0.f, -p0}, {-p1, p0, 0.f}};
-  float R[3][3], V[3][3];
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      const float kk = dot3(K[i][0], K[0][j], K[i][1], K[1][j], K[i][2], K[2][j], ru.slot);
-      const float e = i == j ? 1.f : 0.f;
-      R[i][j] = (e + A * K[i][j]) + B * kk;
-      V[i][j] = (e + B * K[i][j]) + C * kk;
-    }
-  }
-  float t[3];
-#pragma unroll
-  for (int i = 0; i < 3; ++i) t[i] = dot3(V[i][0], r0, V[i][1], r1, V[i][2], r2, ru.vrho);
   const float* Te = p.T_eval + 16 * f;
+  lie::exp_times34(xi, Te, ru, s + kTc);
 #pragma unroll
-  for (int i = 0; i < 3; ++i) {
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      s[kTc + 4 * i + k] = dot4(R[i][0], Te[k], R[i][1], Te[4 + k], R[i][2], Te[8 + k], t[i],
-                                Te[12 + k], ru.slot);
-      s[kTe + 4 * i + k] = Te[4 * i + k];
-    }
-  }
-  inverse34(s + kTc, s + kTci, ru.slot);
-  inverse34(s + kTe, s + kTei, ru.slot);
+  for (int e = 0; e < 12; ++e) s[kTe + e] = Te[e];
+  lie::inverse34(s + kTc, s + kTci, ru.slot);
+  lie::inverse34(s + kTe, s + kTei, ru.slot);
   s[kEac] = p.exposure[f] * expf(xi[6]);
   s[kEaf] = p.exposure[f] * expf(p.x_zero[8 * f + 6]);
   s[kBc] = xi[7];
@@ -315,25 +245,20 @@ struct Pair {
 };
 
 __device__ __forceinline__ void make_pair(const float* sh, const float* sf, int F, Pair& q) {
-  const Rules ru = rules(F);
-  // rel = T_t T_h^-1 (torch.einsum "tij,hjk->htik"); row 3 of T_h^-1 is (0, 0, 0, 1)
+  const lie::Rules ru = lie::rules(F);
+  // rel = T_t T_h^-1 (torch.einsum "tij,hjk->htik")
+  float cur[12], fej[12];
+  lie::mul34(sf + kTc, sh + kTci, cur, ru.rel);
+  lie::mul34(sf + kTe, sh + kTei, fej, ru.rel);
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const float z = k == 3 ? 1.f : 0.f;
-      const float cur = dot4(sf[kTc + 4 * i], sh[kTci + k], sf[kTc + 4 * i + 1], sh[kTci + 4 + k],
-                             sf[kTc + 4 * i + 2], sh[kTci + 8 + k], sf[kTc + 4 * i + 3], z, ru.rel);
-      const float fej = dot4(sf[kTe + 4 * i], sh[kTei + k], sf[kTe + 4 * i + 1], sh[kTei + 4 + k],
-                             sf[kTe + 4 * i + 2], sh[kTei + 8 + k], sf[kTe + 4 * i + 3], z, ru.rel);
-      if (k < 3) {
-        q.Rc[3 * i + k] = cur;
-        q.Rf[3 * i + k] = fej;
-      } else {
-        q.tc[i] = cur;
-        q.tf[i] = fej;
-      }
+    for (int k = 0; k < 3; ++k) {
+      q.Rc[3 * i + k] = cur[4 * i + k];
+      q.Rf[3 * i + k] = fej[4 * i + k];
     }
+    q.tc[i] = cur[4 * i + 3];
+    q.tf[i] = fej[4 * i + 3];
   }
   // lie.se3_adjoint: hat(t) R
   const float ht[3][3] = {{0.f, -q.tf[2], q.tf[1]}, {q.tf[2], 0.f, -q.tf[0]},

@@ -1,0 +1,116 @@
+// SE(3) expressions of the kernels that make their own slot tables from the
+// window's state (ba.cu, trace.cu), in torch's operation order on the card,
+// so that the tables equal the plain versions' bit for bit: lie.se3_exp
+// (over so3_exp, _sinc_coeffs and so3_left_jacobian) times a pose,
+// lie.se3_inverse, and the products of two poses. torch's small matrix
+// products run in cuBLAS, which accumulates a dot product by fused
+// multiply-adds in index order from zero, in one chain or, for some shapes,
+// in two chains added (Rules); its 3-value sum (torch.sum of phi * phi)
+// adds (x0 + x2) + x1. Both are written out (dot3, dot4): a file that
+// includes this header is built with -fmad=false, so that nvcc contracts
+// nothing else. A pose is held as its rows 0-2, 4 columns each (row 3 is
+// (0, 0, 0, 1)).
+
+#pragma once
+
+#include <math.h>
+
+namespace lie {
+
+// a dot product as cuBLAS accumulates it: fused multiply-adds in index
+// order from +0 (the start shows only in the sign of an exact zero); or,
+// ``split``, the terms 0-1 and the rest in two such chains, then added
+__device__ __forceinline__ float dot3(float a0, float b0, float a1, float b1, float a2, float b2,
+                                      bool split = false) {
+  const float h = fmaf(a1, b1, fmaf(a0, b0, 0.f));
+  return split ? h + fmaf(a2, b2, 0.f) : fmaf(a2, b2, h);
+}
+
+__device__ __forceinline__ float dot4(float a0, float b0, float a1, float b1, float a2, float b2,
+                                      float a3, float b3, bool split = false) {
+  const float h = fmaf(a1, b1, fmaf(a0, b0, 0.f));
+  return split ? h + fmaf(a3, b3, fmaf(a2, b2, 0.f)) : fmaf(a3, b3, fmaf(a2, b2, h));
+}
+
+// which of torch's small products cuBLAS (CUDA 12.8, H100) sums split, read
+// off its results (tests/test_torch_ba_kernel.py and
+// tests/test_torch_trace_kernel.py hold the tables to the plain versions at
+// F = 1, 3, 10, 32):
+//   slot: the [F, 4, 4] batched products (se3_exp times T_eval, the
+//     inverse's R^T t) split for a batch of one matrix (F = 1), else chain;
+//   vrho: the exponential's V rho always splits;
+//   rel:  the einsum of T_t and T_h^-1 over the window's slots (ba.cu's
+//     "tij,hjk->htik", trace.cu's "fij,hjk->fhik": one 4F x 4 by 4 x 4F
+//     product) splits at F <= 4;
+//   adj:  hat(t) R of the [F, F] adjoints splits at F = 1;
+//   hn:   trace.cu's T_new_cw @ T_all^-1, a [4, 4] by an [F, 4, 4] (a batch
+//     of F products of the broadcast T_new_cw), splits at F = 1
+struct Rules {
+  bool slot, vrho, rel, adj, hn;
+};
+
+__device__ __forceinline__ Rules rules(int F) {
+  return Rules{F == 1, true, F <= 4, F == 1, F == 1};
+}
+
+// rows 0-2 of an SE(3) inverse (lie.se3_inverse: [R^T, -(R^T t)]) from
+// rows 0-2 of T
+__device__ __forceinline__ void inverse34(const float* T, float* out, bool split) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+#pragma unroll
+    for (int j = 0; j < 3; ++j) out[4 * i + j] = T[4 * j + i];
+    out[4 * i + 3] = -dot3(T[i], T[3], T[4 + i], T[7], T[8 + i], T[11], split);
+  }
+}
+
+// rows 0-2 of A B: A's rows 0-2, B's rows 0-2 (B's row 3 (0, 0, 0, 1))
+__device__ __forceinline__ void mul34(const float* A, const float* B, float* out, bool split) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      out[4 * i + k] = dot4(A[4 * i], B[k], A[4 * i + 1], B[4 + k], A[4 * i + 2], B[8 + k],
+                            A[4 * i + 3], k == 3 ? 1.f : 0.f, split);
+  }
+}
+
+// rows 0-2 of se3_exp(xi[0:6]) Te, Te a whole [4, 4] pose (its row 3 read)
+__device__ __forceinline__ void exp_times34(const float* xi, const float* Te, const Rules& ru,
+                                            float* out) {
+  const float r0 = xi[0], r1 = xi[1], r2 = xi[2], p0 = xi[3], p1 = xi[4], p2 = xi[5];
+  const float q0 = p0 * p0, q1 = p1 * p1, q2 = p2 * p2;
+  const float tsq = (q0 + q2) + q1;                     // torch.sum(phi * phi, -1) on the card
+  const bool small = tsq < 1e-8f;
+  const float safe = small ? 1.f : tsq;
+  const float th = sqrtf(safe);
+  const float sn = sinf(th), cs = cosf(th);
+  // x / k for a python float k is x * (1 / k) in torch's kernel
+  const float A = small ? 1.f - tsq * (1.f / 6.f) : sn / th;
+  const float B = small ? 0.5f - tsq * (1.f / 24.f) : (1.f - cs) / safe;
+  const float C = small ? (1.f / 6.f) - tsq * (1.f / 120.f) : (th - sn) / (safe * th);
+  const float K[3][3] = {{0.f, -p2, p1}, {p2, 0.f, -p0}, {-p1, p0, 0.f}};
+  float R[3][3], V[3][3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      const float kk = dot3(K[i][0], K[0][j], K[i][1], K[1][j], K[i][2], K[2][j], ru.slot);
+      const float e = i == j ? 1.f : 0.f;
+      R[i][j] = (e + A * K[i][j]) + B * kk;
+      V[i][j] = (e + B * K[i][j]) + C * kk;
+    }
+  }
+  float t[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) t[i] = dot3(V[i][0], r0, V[i][1], r1, V[i][2], r2, ru.vrho);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      out[4 * i + k] = dot4(R[i][0], Te[k], R[i][1], Te[4 + k], R[i][2], Te[8 + k], t[i],
+                            Te[12 + k], ru.slot);
+  }
+}
+
+}  // namespace lie

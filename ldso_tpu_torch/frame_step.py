@@ -120,7 +120,8 @@ def trace_slot_tables(T_eval, x, exposure_all, T_new_cw, ab_abs, exposure_new):
     """Each window slot's hostToNew pose [F, 4, 4] and (alpha, beta)
     transfer to the new frame [F, 2]: the expressions
     ``_trace_core_torch`` evaluates per point, per slot (a point's values
-    are its host slot's, gathered)."""
+    are its host slot's, gathered). The yardstick of the tables the trace
+    kernel makes itself (``kernels/trace.trace_tables_cuda``)."""
     T_all = lie.se3_mul(lie.se3_exp(x[:, :6]), T_eval)           # [F,4,4]
     T_hn = T_new_cw @ lie.se3_inverse(T_all)                     # [F,4,4]
     ea = exposure_all * torch.exp(x[:, 6])
@@ -133,9 +134,10 @@ def _trace_core_kernel(img3_new, bank, T_eval, x, exposure_all, T_new_cw, ab_abs
                        exposure_new, intr, cfg) -> Bank:
     from ldso_tpu_torch.kernels.trace import trace_bank_cuda
 
-    T_hn, ab = trace_slot_tables(T_eval, x, exposure_all, T_new_cw, ab_abs, exposure_new)
     out = trace_bank_cuda(img3_new.contiguous(), Bank(*(f.contiguous() for f in bank)),
-                          T_hn, ab, intr.contiguous(), **_trace_kw(cfg))
+                          T_eval.contiguous(), x.contiguous(), exposure_all.contiguous(),
+                          T_new_cw.contiguous(), ab_abs.contiguous(), exposure_new,
+                          intr.contiguous(), **_trace_kw(cfg))
     return bank._replace(valid=out.valid, idepth_min=out.idepth_min,
                          idepth_max=out.idepth_max, quality=out.quality,
                          last_status=out.last_status, outlier_count=out.outlier_count)

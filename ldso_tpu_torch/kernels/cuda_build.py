@@ -3,9 +3,11 @@
 Each kernel source is compiled with ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, at first use, into
 ``.build/ldso_tpu_torch/`` at the root of the checkout. The library's file
-name carries a hash of the source and the flags, so an edited source is
-never served stale. A build may add preprocessor defines (``defines``,
-e.g. ``("TRACK_LEVEL_PHASES",)`` for an instrumented second library) and
+name carries a hash of the source, of every local header it includes
+(``#include "..."``, followed into the headers' own includes) and of the
+flags, so an edited source or header is never served stale. A build may
+add preprocessor defines (``defines``, e.g. ``("TRACK_LEVEL_PHASES",)``
+for an instrumented second library) and
 nvcc flags of its own (``extra``, e.g. ``("-fmad=false",)``); both are
 part of the flags, so of the hash. Nothing is compiled or loaded at
 import.
@@ -17,8 +19,10 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
+import threading
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), ".build", "ldso_tpu_torch")
@@ -47,19 +51,51 @@ def _flags(defines: tuple, extra: tuple = ()) -> list:
     return [*NVCC_FLAGS, *extra, *(f"-D{d}" for d in defines)]
 
 
+_LOCAL_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
+
+
+def source_texts(src: str) -> list:
+    """The text of the source at ``src`` and of each local header it
+    includes (``#include "..."``, resolved beside the including file, as
+    nvcc does), each once, in the order they are first included."""
+    seen, texts = set(), []
+
+    def add(path: str) -> None:
+        path = os.path.abspath(path)
+        if path in seen:
+            return
+        seen.add(path)
+        with open(path, "rb") as f:
+            text = f.read()
+        texts.append(text)
+        for name in _LOCAL_INCLUDE.findall(text):
+            add(os.path.join(os.path.dirname(path), name.decode()))
+
+    add(src)
+    return texts
+
+
+def library_path(src: str, defines: tuple = (), extra: tuple = ()) -> str:
+    """Where ``build`` puts the library of the source at ``src``:
+    ``libldso_<stem>_<hash>.so``, the hash of its texts and flags."""
+    flags = _flags(defines, extra)
+    h = hashlib.sha256()
+    for text in source_texts(src):
+        h.update(hashlib.sha256(text).digest())
+    h.update(" ".join(flags).encode())
+    stem = os.path.splitext(os.path.basename(src))[0]
+    return os.path.join(BUILD_DIR, f"libldso_{stem}_{h.hexdigest()[:16]}.so")
+
+
 def build(src: str, defines: tuple = (), extra: tuple = ()) -> str:
     """Compile the source at ``src`` (if not already built from the same
-    text and flags) into ``libldso_<stem>_<hash>.so`` and return its path."""
-    with open(src, "rb") as f:
-        text = f.read()
+    texts and flags) into ``library_path`` and return its path."""
     flags = _flags(defines, extra)
-    tag = hashlib.sha256(text + " ".join(flags).encode()).hexdigest()[:16]
-    stem = os.path.splitext(os.path.basename(src))[0]
-    lib = os.path.join(BUILD_DIR, f"libldso_{stem}_{tag}.so")
+    lib = library_path(src, defines, extra)
     if os.path.isfile(lib):
         return lib
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{lib}.{os.getpid()}.tmp"
+    tmp = f"{lib}.{os.getpid()}.{threading.get_ident()}.tmp"
     subprocess.run([nvcc(), *flags, "-o", tmp, src], check=True)
     os.replace(tmp, lib)
     return lib

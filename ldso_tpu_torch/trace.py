@@ -337,9 +337,9 @@ def activate_candidates_device(win_images, frame_valid, T_all, x_affine,
     if win_images.device.type == "cuda":
         from ldso_tpu_torch.kernels.trace import activate_bank_cuda
 
-        T_rel, alpha, beta = activation_slot_tables(T_all, x_affine, exposure_all)
         return activate_bank_cuda(
-            win_images.contiguous(), frame_valid.contiguous(), T_rel, alpha, beta,
+            win_images.contiguous(), frame_valid.contiguous(), T_all.contiguous(),
+            x_affine.contiguous(), exposure_all.contiguous(),
             type(bank)(*(f.contiguous() for f in bank)), intr.contiguous(), min_quality,
             iters=iters, huber_th=huber_th)
     raise ValueError(f"no activation for device {win_images.device}")
@@ -349,7 +349,8 @@ def activation_slot_tables(T_all, x_affine, exposure_all):
     """The relative poses [F, F, 4, 4] ([f, h] = T_all[f] T_all[h]^-1) and
     the affine transfers alpha, beta [F, F] (host h to target f): the
     expressions :func:`optimize_idepth_bank` evaluates per point, per slot
-    pair."""
+    pair. The yardstick of the tables the activation kernel makes itself
+    (``kernels/trace.activation_tables_cuda``)."""
     T_rel = torch.einsum("fij,hjk->fhik", T_all, lie.se3_inverse(T_all)).contiguous()
     ea = exposure_all * torch.exp(x_affine[:, 6])                      # [F]
     alpha = ea[:, None] / torch.clamp(ea, min=1e-12)[None, :]          # [f, h]

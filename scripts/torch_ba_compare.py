@@ -35,67 +35,21 @@ version. Run from the root of a checkout, on a machine with a CUDA card.
 from __future__ import annotations
 
 import argparse
-import importlib.util
 import json
-import os
 import statistics
 import subprocess
 import sys
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-
-def _chip_smoke():
-    """This checkout's chip_smoke.py, whatever checkout's package is on
-    the path."""
-    spec = importlib.util.spec_from_file_location("chip_smoke",
-                                                  os.path.join(ROOT, "chip_smoke.py"))
-    cs = importlib.util.module_from_spec(spec)
-    sys.modules["chip_smoke"] = cs
-    spec.loader.exec_module(cs)
-    return cs
-
-
-def _build_all():
-    """Build the hand kernels the package on the path has."""
-    import importlib
-
-    for name in ("pallas_pyramid", "track_level", "trace", "ba"):
-        try:
-            mod = importlib.import_module(f"ldso_tpu_torch.kernels.{name}")
-        except ImportError:
-            continue
-        mod.build()
-
-
-def _render(cs):
-    import concurrent.futures
-    import multiprocessing
-
-    with concurrent.futures.ProcessPoolExecutor(
-            max_workers=min(8, os.cpu_count() or 1),
-            mp_context=multiprocessing.get_context("spawn")) as pool:
-        return cs._render_bench(cs.N_FRAMES, pool=pool)
+import torch_pairs
 
 
 def drive(root: str) -> dict:
     """One phase-4 drive of the package at ``root``."""
-    sys.path.insert(0, root)
-    import torch
-
-    if not torch.cuda.is_available():
-        raise SystemExit("torch_ba_compare.py: needs a CUDA card")
-    cs = _chip_smoke()
-    from ldso_tpu_torch.config import preset
-
-    _build_all()
-    ds, frames = _render(cs)
-    probe = cs.BenchProbe((), cs.TRACK_PROFILE)
-    run = cs.drive_bench(preset("default"), ds, frames, torch.device("cuda", 0),
-                         torch.cuda.synchronize, probe=probe)
+    cs, run, probe = torch_pairs.bench_drive(
+        root, lambda cs: cs.BenchProbe((), cs.TRACK_PROFILE), "torch_ba_compare.py")
     prof = probe.summary()
     kf = max(prof["keyframe"]["calls"], 1)
-    return dict(root=root, fps=run["fps"], ate=run["ate"], n_kf=run["n_kf"],
+    return dict(fps=run["fps"], ate=run["ate"], n_kf=run["n_kf"],
                 tracked=run["n_tracked"], wall_ms=prof["wall_ms"],
                 kernels_per_frame=prof["launches_per_frame"], busy=prof["busy"],
                 keyframe_host_ms=prof["keyframe"]["host_ms"] * prof["frames"] / kf,
@@ -106,20 +60,20 @@ def drive(root: str) -> dict:
 def replay() -> None:
     """A drive of this checkout that keeps run_ba's and marginalize_points'
     arguments, then the kernel against the plain version on them."""
-    sys.path.insert(0, ROOT)
+    sys.path.insert(0, torch_pairs.ROOT)
     import torch
 
-    cs = _chip_smoke()
+    cs = torch_pairs.chip_smoke()
     from ldso_tpu_torch.ba import solve
     from ldso_tpu_torch.config import preset
     from ldso_tpu_torch.kernels import ba as kba
     from ldso_tpu_torch.kernels import cuda_build
 
     card = cs._card_line()
-    _build_all()
+    torch_pairs.build_all()
     print(f"ptxas: {cs.ptxas_kernels(cuda_build.ptxas_report(kba.SOURCE, (), kba.NO_FMAD))}",
           flush=True)
-    ds, frames = _render(cs)
+    ds, frames = torch_pairs.render(cs, cs.N_FRAMES)
     probe = cs.BenchProbe((), ())
     kba.reset_launches()
     with cs.count_ba() as evals:
@@ -168,21 +122,8 @@ def main() -> int:
     if a.one:
         print(json.dumps(drive(a.one)), flush=True)
         return 0
-    roots = [ROOT] * a.rounds if a.parent is None else (
-        [os.path.abspath(a.parent), ROOT, ROOT, os.path.abspath(a.parent)] * a.rounds)
-    runs = []
-    for root in roots:
-        out = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", root],
-                             cwd=root, capture_output=True, text=True)
-        if out.returncode:
-            raise SystemExit(f"drive of {root} failed:\n{out.stdout[-4000:]}"
-                             f"{out.stderr[-8000:]}")
-        runs.append(json.loads(out.stdout.strip().splitlines()[-1]))
-        print(json.dumps(runs[-1]), flush=True)
-    for name, root in (("parent", a.parent and os.path.abspath(a.parent)), ("this", ROOT)):
-        rs = [r for r in runs if r["root"] == root]
-        if not rs:
-            continue
+    runs = torch_pairs.in_pairs(__file__, a.parent, a.rounds)
+    for name, rs in torch_pairs.by_root(runs, a.parent):
         parts = ("ba_assemble", "ba_precompute", "ba_solve_core", "ba_apply_step",
                  "ba_state_delta", "syncs", "copies", "rest")
         print(f"{name}: run_ba host ms a call " + ", ".join(

@@ -34,6 +34,7 @@ import pytest
 import torch
 
 import chip_smoke as cs
+import table_replay as tr
 from ldso_tpu_torch.ba import residuals as tres
 from ldso_tpu_torch.ba import solve as tsolve
 from ldso_tpu_torch.config import preset
@@ -364,94 +365,24 @@ def _emulate(win: Window, mode: str, sms: int = 132):
                 valid_pair=valid_pair, oob_pair=s["requested"] & ~valid_pair)
 
 
-# the pair tables as the kernel makes them (csrc/ba.cu slot_entry, make_pair),
-# in torch ops in its order; how the device sums torch's small products and
-# its 3-value sum comes in as RULES: each product's dot products ("seq":
-# each product and sum rounded; "fma": fused multiply-adds in index order),
-# sum3, and x / k for a python float k. The card's are the kernel's
-# (csrc/ba.cu's Rules, which also split some chains in two; the gpu cases
-# hold its tables to ba_slot_tables); the CPU's, read
-# off torch here: its batched products round each product and sum, MKL's
-# sgemm under the einsum chains fused multiply-adds except at F = 1 (a 4x4
-# product, computed as the batched ones), torch.sum adds (x0 + x1) + x2,
-# x / k divides
-PRODUCTS = ("KK", "Vrho", "ET", "inv", "rel", "adj")
-
-
-def _cpu_rules(F: int) -> tuple:
-    modes = {k: "seq" for k in PRODUCTS}
-    modes["rel"] = "fma" if F > 1 else "seq"
-    return modes, lambda q: (q[0] + q[1]) + q[2], lambda t, k: t / k
-
-
-def _fma(a, b, c):
-    """float32 fused multiply-add, exact: the float64 product is exact, the
-    float64 sum taken to round-to-odd (TwoSum), then rounded once to
-    float32."""
-    a, b, c = torch.broadcast_tensors(a, b, c)
-    p, cc = a.double() * b.double(), c.double()
-    s = p + cc
-    bb = s - p
-    err = (p - (s - bb)) + (cc - bb)
-    even = (s.view(torch.int64) & 1) == 0
-    s = torch.where((err != 0) & even, torch.nextafter(s, s + err), s)
-    return s.float()
-
-
-def _dot(pairs, mode: str):
-    """A dot product accumulated from +0 in index order (the start shows
-    only in the sign of an exact zero), by ``mode`` (see RULES)."""
-    acc = torch.zeros_like(pairs[0][0] * pairs[0][1])
-    for a, b in pairs:
-        acc = _fma(a, b, acc) if mode == "fma" else acc + a * b
-    return acc
-
-
 def _replay_slot_tables(win: Window, rules: tuple) -> tuple:
-    """(pair [F, F, 62], slot [F, 3]) by the kernel's expression."""
-    modes, sum3, divk = rules
+    """(pair [F, F, 62], slot [F, 3]) by the kernel's expression
+    (csrc/ba.cu slot_entry, make_pair; ``table_replay``'s rules)."""
+    modes = rules[0]
     x, xz, Te, ex = win.x, win.x_zero, win.T_eval, win.exposure
     F = x.shape[0]
-    r, p = [x[:, i] for i in range(3)], [x[:, 3 + i] for i in range(3)]
-    tsq = sum3([pi * pi for pi in p])
-    small = tsq < 1e-8
-    safe = torch.where(small, torch.ones_like(tsq), tsq)
-    th = torch.sqrt(safe)
-    sn, cs_ = torch.sin(th), torch.cos(th)
-    A = torch.where(small, 1.0 - divk(tsq, 6.0), sn / th)
-    B = torch.where(small, 0.5 - divk(tsq, 24.0), (1.0 - cs_) / safe)
-    C = torch.where(small, 1.0 / 6.0 - divk(tsq, 120.0), (th - sn) / (safe * th))
-    z = torch.zeros_like(tsq)
-    K = [[z, -p[2], p[1]], [p[2], z, -p[0]], [-p[1], p[0], z]]
-    R = [[None] * 3 for _ in range(3)]
-    V = [[None] * 3 for _ in range(3)]
-    for i in range(3):
-        for j in range(3):
-            kk = _dot([(K[i][m], K[m][j]) for m in range(3)], modes["KK"])
-            e = 1.0 if i == j else 0.0
-            R[i][j] = (e + A * K[i][j]) + B * kk
-            V[i][j] = (e + B * K[i][j]) + C * kk
-    t = [_dot([(V[i][j], r[j]) for j in range(3)], modes["Vrho"]) for i in range(3)]
-    E = [[R[i][0], R[i][1], R[i][2], t[i]] for i in range(3)]
-    Tc = [[_dot([(E[i][j], Te[:, j, k]) for j in range(4)], modes["ET"]) for k in range(4)]
-          for i in range(3)]
-    Tv = [[Te[:, i, k] for k in range(4)] for i in range(3)]
-
-    def inverse(T):
-        return [[T[j][i] for j in range(3)]
-                + [-_dot([(T[j][i], T[j][3]) for j in range(3)], modes["inv"])] for i in range(3)]
+    Tc, Tv = tr.exp_times(x, Te, rules), tr.rows(Te)
 
     def rel(Tt, Ti):                  # [h, t] = T_t T_h^-1
-        return [[_dot([(Tt[i][j][None, :], Ti[j][k][:, None]) for j in range(3)]
-                      + [(Tt[i][3][None, :].expand(F, F),
-                          torch.full((F, F), 1.0 if k == 3 else 0.0))], modes["rel"])
-                 for k in range(4)] for i in range(3)]
+        return tr.mul([[e[None, :] for e in r] for r in Tt],
+                      [[e[:, None] for e in r] for r in Ti], modes["rel"])
 
-    rc, rf = rel(Tc, inverse(Tc)), rel(Tv, inverse(Tv))
+    rc = rel(Tc, tr.inverse(Tc, modes["inv"]))
+    rf = rel(Tv, tr.inverse(Tv, modes["inv"]))
     zz = torch.zeros(F, F)
     tf = [rf[i][3] for i in range(3)]
     ht = [[zz, -tf[2], tf[1]], [tf[2], zz, -tf[0]], [-tf[1], tf[0], zz]]
-    tR = [[_dot([(ht[i][m], rf[m][j]) for m in range(3)], modes["adj"]) for j in range(3)]
+    tR = [[tr.dot([(ht[i][m], rf[m][j]) for m in range(3)], modes["adj"]) for j in range(3)]
           for i in range(3)]
     adj = [[(rf[i][j] if j < 3 else tR[i][j - 3]) if i < 3 else (zz if j < 3 else rf[i - 3][j - 3])
             for j in range(6)] for i in range(6)]
@@ -553,7 +484,7 @@ def test_slot_table_replay_is_bitwise(F, angle):
     # the general one
     win = _pose_window(F, angle, seed=F)
     pair, slot = tres.ba_slot_tables(win)
-    rp, rs = _replay_slot_tables(win, _cpu_rules(F))
+    rp, rs = _replay_slot_tables(win, tr.cpu_rules(F))
     assert rp.shape == pair.shape == (F, F, kba.PAIR_TABLE)
     assert torch.equal(rp.view(torch.int32), pair.view(torch.int32))
     assert torch.equal(rs.view(torch.int32), slot.view(torch.int32))

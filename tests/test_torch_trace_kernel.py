@@ -5,10 +5,17 @@ package's ``frame_step.trace_step`` and ``trace.activate_candidates_device``
 on the same numpy-made bank and window, at ``preset("tiny")`` and at the
 default shapes (2048 rows, 640x480, F = 10, 32 samples, the 4-point sweep),
 with edge rows; the dispatch of ``frame_step._trace_core`` and
-``trace.activate_candidates_device``; the wrappers' refusals; chip_smoke's
+``trace.activate_candidates_device``; the wrappers' refusals; the slot
+tables the kernels make, their expression replayed in torch ops with the
+CPU's rounding rules (``table_replay``) against ``trace_slot_tables`` /
+``activation_slot_tables`` bit for bit; the activation's launch layout; the
+activation kernel's order replayed in torch (``chip_smoke.activate_replay``)
+against the plain version; the build's hash of the headers; chip_smoke's
 yardsticks (the replay of the plain trace, the ties, the bounds) on the
 CPU; and, on a card, each CUDA kernel (``kernels/trace.py``) against its
-plain version with chip_smoke's tie rule, bit for bit in a second launch.
+plain version with chip_smoke's tie rule, bit for bit in a second launch,
+the activation bit for bit its order's replay, and the kernels' tables bit
+for bit the torch tables at 1, 3, 10 and 32 slots.
 
 The JAX package is imported inside the tests that use it, so that the
 card's machine, which has no JAX, runs the kernels' tests:
@@ -24,12 +31,14 @@ import pytest
 import torch
 
 import chip_smoke as cs
+import table_replay as tr
 from ldso_tpu_torch import frame_step
 from ldso_tpu_torch import trace as ttrace
 from ldso_tpu_torch.config import preset
 from ldso_tpu_torch.core.bank import Bank
 from ldso_tpu_torch.core.window import PATTERN_OFFSETS
 from ldso_tpu_torch.io import synthetic
+from ldso_tpu_torch.kernels import cuda_build
 from ldso_tpu_torch.kernels import pyramid as tpyr
 from ldso_tpu_torch.kernels import trace as ktr
 from ldso_tpu_torch.math import lie
@@ -327,25 +336,34 @@ def test_dispatch_takes_the_plain_versions_for_cpu_tensors(tiny_scene):
 def test_wrappers_refuse_cpu_and_non_contiguous_tensors(tiny_scene):
     args = _trace_args(tiny_scene)
     img3, bank, T_eval, x, expo, T_new_cw, ab_abs, expo_new, intr, cfg = args
-    T_hn, ab = frame_step.trace_slot_tables(T_eval, x, expo, T_new_cw, ab_abs, expo_new)
     kw = frame_step._trace_kw(cfg)
+
+    def trace(bank=bank, T_eval=T_eval, x=x, expo=expo, **more):
+        return ktr.trace_bank_cuda(img3, bank, T_eval, x, expo, T_new_cw, ab_abs, expo_new,
+                                   intr, **dict(kw, **more))
+
     with pytest.raises(ValueError, match="needs CUDA tensors"):
-        ktr.trace_bank_cuda(img3, bank, T_hn, ab, intr, **kw)
+        trace()
     wide = torch.cat([bank.uv, bank.uv], 1)[:, :2]
     with pytest.raises(ValueError, match="uv is not contiguous"):
-        ktr.trace_bank_cuda(img3, bank._replace(uv=wide), T_hn, ab, intr, **kw)
+        trace(bank._replace(uv=wide))
     with pytest.raises(TypeError, match="host_slot is torch.int64"):
-        ktr.trace_bank_cuda(img3, bank._replace(host_slot=bank.host_slot.long()), T_hn, ab,
-                            intr, **kw)
+        trace(bank._replace(host_slot=bank.host_slot.long()))
     with pytest.raises(ValueError, match="samples"):
-        ktr.trace_bank_cuda(img3, bank, T_hn, ab, intr, **dict(kw, num_samples=65))
+        trace(num_samples=65)
+    with pytest.raises(ValueError, match="x is not contiguous"):
+        trace(x=torch.cat([x, x], 1)[:, :8])
+    with pytest.raises(ValueError, match="33 slots"):
+        trace(T_eval=T_eval[[0] * 33], x=x[[0] * 33], expo=expo[[0] * 33])
     (w_img, fv, T_all, xa, ea, abank, aintr, min_q), akw = _act_call(tiny_scene)
-    T_rel, alpha, beta = ttrace.activation_slot_tables(T_all, xa, ea)
     with pytest.raises(ValueError, match="needs CUDA tensors"):
-        ktr.activate_bank_cuda(w_img, fv, T_rel, alpha, beta, abank, aintr, min_q, **akw)
-    with pytest.raises(ValueError, match="T_rel is not contiguous"):
-        ktr.activate_bank_cuda(w_img, fv, T_rel.transpose(0, 1), alpha, beta, abank, aintr,
-                               min_q, **akw)
+        ktr.activate_bank_cuda(w_img, fv, T_all, xa, ea, abank, aintr, min_q, **akw)
+    with pytest.raises(ValueError, match="T_all is not contiguous"):
+        ktr.activate_bank_cuda(w_img, fv, T_all.transpose(1, 2), xa, ea, abank, aintr, min_q,
+                               **akw)
+    with pytest.raises(ValueError, match="33 slots"):
+        ktr.activate_bank_cuda(w_img[[0] * 33], fv[[0] * 33], T_all[[0] * 33], xa[[0] * 33],
+                               ea[[0] * 33], abank, aintr, min_q, **akw)
 
 
 def test_slot_tables_are_the_plain_versions_per_row_values(tiny_scene):
@@ -368,6 +386,147 @@ def test_slot_tables_are_the_plain_versions_per_row_values(tiny_scene):
     assert torch.allclose(T_rel[:, hs].transpose(0, 1),
                           torch.einsum("fij,pjk->pfik", T_all, lie.se3_inverse(T_all)[hs]),
                           atol=1e-6)
+
+
+def _slot_state(F: int, angle: float, seed: int = 0, device="cpu") -> tuple:
+    """``trace_slot_tables``' arguments for F slots made with numpy: poses
+    with rotations of about ``angle`` rad in T_eval and x, affine states,
+    exposures, a new frame's pose, affine and exposure."""
+    rng = np.random.default_rng(seed)
+
+    def pose(n):
+        return lie.se3_exp(torch.as_tensor(np.concatenate(
+            [rng.normal(size=(n, 3)), rng.normal(size=(n, 3)) * angle], 1), dtype=torch.float32))
+
+    x = rng.normal(size=(F, 8)) * 0.1
+    x[:, 3:6] = rng.normal(size=(F, 3)) * angle
+    as_t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)  # noqa: E731
+    return (pose(F).to(device), as_t(x), as_t(1 + 0.1 * rng.random(F)), pose(1)[0].to(device),
+            as_t(rng.normal(size=2) * 0.1), float(np.float32(1 + 0.1 * rng.random())))
+
+
+@pytest.mark.parametrize("F", [1, 3, 10])
+@pytest.mark.parametrize("angle", [1e-6, 1.0])
+def test_trace_table_replay_is_bitwise(F, angle):
+    # the trace kernel's table expression with the CPU's rounding rules
+    # gives the CPU's trace_slot_tables bit for bit: the small-angle branch
+    # (angle 1e-6) and the general one
+    st = _slot_state(F, angle, seed=F)
+    (T_hn, ab), (r_hn, r_ab) = frame_step.trace_slot_tables(*st), tr.trace_tables(
+        *st, tr.cpu_rules(F))
+    assert r_hn.shape == T_hn.shape == (F, 4, 4) and r_ab.shape == ab.shape == (F, 2)
+    assert cs._bits_equal(r_hn, T_hn) and cs._bits_equal(r_ab, ab)
+    small = bool((st[1][:, 3:6].square().sum(-1) < 1e-8).all())
+    assert small == (angle < 1e-3)
+
+
+@pytest.mark.parametrize("F", [1, 3, 10])
+@pytest.mark.parametrize("angle", [1e-6, 1.0])
+def test_activation_table_replay_is_bitwise(F, angle):
+    # the activation kernel's table expression (each slot's inverse, then
+    # each (target, host) product) with the CPU's rounding rules gives the
+    # CPU's activation_slot_tables bit for bit
+    T_eval, x, expo = _slot_state(F, angle, seed=F)[:3]
+    T_all = lie.se3_mul(lie.se3_exp(x[:, :6]), T_eval)
+    ref = ttrace.activation_slot_tables(T_all, x, expo)
+    got = tr.activation_tables(T_all, x, expo, tr.cpu_rules(F))
+    assert got[0].shape == (F, F, 4, 4) and got[1].shape == got[2].shape == (F, F)
+    for a, b in zip(got, ref):
+        assert cs._bits_equal(a, b)
+
+
+@pytest.mark.parametrize("F", range(1, 33))
+def test_activation_layout_covers_each_slot_once(F):
+    # read off csrc/trace.cu: the activation's CTA (the C entry's launch: a
+    # CTA a row) and each thread's (target slot, pattern point) (the
+    # kernel's layout line); every target slot is on 8 lanes of one warp, a
+    # lane a pattern point, and the slots follow the thread index, so their
+    # sums are added in slot order
+    import re
+
+    text = open(ktr.SOURCE).read()
+    entry = text[text.index('extern "C" int ldso_activate_bank('):]
+    assert "activate_bank_kernel<<<N, threads, 0," in entry
+    threads = eval(re.search(r"const int threads = (.*?);", entry).group(1).replace("/", "//"),
+                   {"F": F})
+    assert threads == 32 * -(-F // 4) <= 32 * ktr.MAX_SLOTS // 4
+    kernel = text[text.index(") activate_bank_kernel("):]
+    g, j, f = re.search(r"const int g = (.*?), j = (.*?), f = (.*?);", kernel).groups()
+    tid = np.arange(threads)
+    env = dict(tid=tid, lane=tid & 31)
+    env["g"] = eval(g, env)
+    slot, point = eval(f, env), eval(j, env)
+    for s in range(F):
+        on = np.nonzero(slot == s)[0]
+        assert on.tolist() == list(range(8 * s, 8 * s + 8))    # one group of 8, in a warp
+        assert point[on].tolist() == list(range(8))            # each pattern point once
+    assert (slot >= F).sum() == threads - 8 * F
+    assert (np.diff(slot) >= 0).all()
+
+
+@pytest.mark.parametrize("which", ["tiny", "default"])
+def test_activation_replay_matches_plain(which, tiny_scene, default_scene):
+    # the activation kernel's order replayed in torch (the yardstick of its
+    # bits on the card) against the plain version, which sums every slot
+    # and point in one reduction: the decisions equal, the results within
+    # chip_smoke's bounds but at a tie (a sample within TRACE_TIE_PX of the
+    # border at the plain version's inverse depths)
+    call = _act_call(tiny_scene if which == "tiny" else default_scene)
+    rep = cs.activate_replay(call)
+    det = {}
+    ref = ttrace.activate_candidates_torch(*call[0], **call[1], details=det)
+    assert torch.equal(rep["can"], ref["can"]) and int(ref["can"].sum()) > 100
+    ok_f = cs.activation_slots(call, ref["can"])
+    tie = torch.zeros_like(ref["can"])
+    for uvn, _ in det["samples"]:
+        tie |= (cs._near_border(uvn, call[0][0].shape[2], call[0][0].shape[1])
+                & ok_f[..., None]).flatten(1).any(1)
+    held = ((rep["count"] == ref["count"])
+            & cs._close(rep["idepth"], ref["idepth"], cs.ACT_IDEPTH_RTOL, cs.ACT_IDEPTH_ATOL)
+            & cs._close(rep["H_dd"], ref["H_dd"], cs.ACT_SUM_RTOL, cs.ACT_SUM_ATOL)
+            & cs._close(rep["energy"], ref["energy"], cs.ACT_SUM_RTOL, cs.ACT_SUM_ATOL))
+    assert not bool((~held & ~tie).any()) and int((~held).sum()) <= cs.ACT_MAX_TIES
+    assert torch.equal(rep["idepth"][~ref["can"]], ref["idepth"][~ref["can"]])
+
+
+@pytest.mark.parametrize("entry", ["ldso_trace_bank", "ldso_activate_bank"])
+def test_argtypes_follow_the_c_entry(entry):
+    # the ctypes binding's argument types are the C entry point's, one by
+    # one (a pointer, an int, a float), read off csrc/trace.cu
+    import ctypes
+    import re
+
+    text = open(ktr.SOURCE).read()
+    params = re.search(rf'extern "C" int {entry}\((.*?)\)\s*\{{', text, re.S).group(1)
+    kinds = [("p" if "*" in q else "f" if q.split()[0] == "float" else "i")
+             for q in params.replace("\n", " ").split(",")]
+    types = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
+    want = [types[k] for k in kinds]
+    got = ktr.TRACE_ARGTYPES if entry == "ldso_trace_bank" else ktr.ACTIVATE_ARGTYPES
+    assert got == want
+
+
+def test_build_name_follows_local_headers(tmp_path):
+    # a kernel's library is named by its source, the local headers it
+    # includes and the flags: an edited header gives another library
+    src = tmp_path / "csrc"
+    src.mkdir()
+    for name in ("trace.cu", "lie.cuh"):
+        (src / name).write_bytes(open(os.path.join(os.path.dirname(ktr.SOURCE), name),
+                                      "rb").read())
+    cu = str(src / "trace.cu")
+    texts = cuda_build.source_texts(cu)
+    assert len(texts) == 2 and texts[1] == (src / "lie.cuh").read_bytes()
+    before = cuda_build.library_path(cu, (), ktr.NO_FMAD)
+    assert before == cuda_build.library_path(ktr.SOURCE, (), ktr.NO_FMAD)
+    (src / "lie.cuh").write_bytes(texts[1] + b"// edited\n")
+    after = cuda_build.library_path(cu, (), ktr.NO_FMAD)
+    assert after != before and os.path.basename(after).startswith("libldso_trace_")
+    assert cuda_build.library_path(cu, (), ()) != after               # the flags count too
+    # both sources that make slot tables include the one header
+    from ldso_tpu_torch.kernels import ba as kba
+
+    assert cuda_build.source_texts(kba.SOURCE)[1] == cuda_build.source_texts(ktr.SOURCE)[1]
 
 
 def test_wrapper_imports_without_nvcc():
@@ -494,8 +653,10 @@ def test_cuda_trace_matches_plain(cuda, which, tiny_scene, default_scene):
     s = tiny_scene if which == "tiny" else default_scene
     args = _trace_args(s, device=cuda)
     before = ktr.LAUNCHES_TRACE
-    rec = cs.check_trace(f"{which} scene", args)       # the tie rule, a bitwise repeat
-    assert ktr.LAUNCHES_TRACE == before + 2
+    # the tie rule, a bitwise repeat, the kernel's tables (a third launch)
+    rec = cs.check_trace(f"{which} scene", args)
+    assert ktr.LAUNCHES_TRACE == before + 3
+    assert rec["table"]["entries"] == 0
     assert rec["valid"] > 0 and rec["status"][GOOD] > 0
 
 
@@ -524,10 +685,52 @@ def test_cuda_activation_matches_plain(cuda, which, tiny_scene, default_scene):
     s = tiny_scene if which == "tiny" else default_scene
     call = _act_call(s, device=cuda)
     before = ktr.LAUNCHES_ACTIVATE
-    rec = cs.check_activate(f"{which} scene", call)    # ties, a bitwise repeat
-    assert ktr.LAUNCHES_ACTIVATE == before + 2
-    assert rec["candidates"] > 0
+    # ties, a bitwise repeat, bit for bit the replay of its order, the
+    # kernel's tables (a third launch)
+    rec = cs.check_activate(f"{which} scene", call)
+    assert ktr.LAUNCHES_ACTIVATE == before + 3
+    assert rec["candidates"] > 0 and rec["table"]["entries"] == 0
     res = ttrace.activate_candidates_device(*call[0], **call[1])
     torch.cuda.synchronize()
-    assert ktr.LAUNCHES_ACTIVATE == before + 3
+    assert ktr.LAUNCHES_ACTIVATE == before + 4
     assert res["can"].dtype == torch.bool and res["count"].dtype == torch.float32
+
+
+def _small_bank(n: int, device) -> Bank:
+    """n invalid rows: the tables' launches need a bank, not its rows."""
+    z = lambda *shape, dt=torch.float32: torch.zeros(shape, dtype=dt, device=device)  # noqa: E731
+    return Bank(valid=z(n, dt=torch.bool), host_slot=z(n, dt=torch.int32), uv=z(n, 2),
+                color=z(n, 8), weight=z(n, 8), idepth_min=z(n), idepth_max=z(n), quality=z(n),
+                last_status=z(n, dt=torch.int32), outlier_count=z(n, dt=torch.int32),
+                is_corner=z(n, dt=torch.bool))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("F", [1, 3, 10, 32])
+@pytest.mark.parametrize("angle", [1e-6, 1.0])
+def test_cuda_trace_tables_equal_plain(cuda, F, angle):
+    # the slot tables the trace kernel makes equal trace_slot_tables on the
+    # card bit for bit: the small-angle branch and the general one, a batch
+    # of one matrix and of many
+    T_eval, x, expo, T_new_cw, ab_abs, expo_new = _slot_state(F, angle, seed=F, device=cuda)
+    intr = torch.tensor([50.0, 50.0, 8.0, 8.0], device=cuda)
+    args = (torch.zeros((16, 16, 3), device=cuda), _small_bank(4, cuda), T_eval, x, expo,
+            T_new_cw, ab_abs, expo_new, intr, preset("tiny"))
+    rec = cs.trace_table_compare(args)
+    assert rec["entries"] == 0, rec
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("F", [1, 3, 10, 32])
+@pytest.mark.parametrize("angle", [1e-6, 1.0])
+def test_cuda_activation_tables_equal_plain(cuda, F, angle):
+    # the relative poses and affine transfers the activation kernel makes
+    # equal activation_slot_tables on the card bit for bit
+    T_eval, x, expo = _slot_state(F, angle, seed=F, device=cuda)[:3]
+    T_all = lie.se3_mul(lie.se3_exp(x[:, :6]), T_eval)
+    intr = torch.tensor([50.0, 50.0, 8.0, 8.0], device=cuda)
+    call = ((torch.zeros((F, 16, 16, 3), device=cuda), torch.ones(F, dtype=torch.bool,
+                                                                   device=cuda),
+             T_all, x, expo, _small_bank(4, cuda), intr, 3.0), dict(iters=3, huber_th=9.0))
+    rec = cs.activation_table_compare(call)
+    assert rec["entries"] == 0, rec
