@@ -10,9 +10,10 @@ Phases, one result line each (any failure raises and exits non-zero):
      float32 precision flags;
   2. build: compile every kernel of the main path from ``ldso_tpu_torch/csrc``
      (the pyramid, the tracker levels, the trace and activation kernels
-     of ``trace.cu`` (built with ``-fmad=false``) and the BA linearization of
-     ``ba.cu``, each source its own nvcc, started together, with the
-     tracker's, the trace source's and the BA source's ``ptxas -v`` reports
+     of ``trace.cu`` (built with ``-fmad=false``), the BA linearization of
+     ``ba.cu`` and the bootstrap's GN loop of ``init_level.cu``, each source
+     its own nvcc, started together, with the tracker's, the trace
+     source's, the BA source's and the bootstrap's ``ptxas -v`` reports
      beside them: registers, shared memory, spills of each kernel),
      and the tracker kernel again with ``-DTRACK_LEVEL_PHASES`` (its clock64
      phase stamps)
@@ -40,8 +41,11 @@ Phases, one result line each (any failure raises and exits non-zero):
      activations; the tracker kernel launched 2 times per tracked frame
      (the coarse levels of every hypothesis, then the winner's fine
      levels), the trace kernel once per tracked frame and the activation
-     kernel once per keyframe built, and the BA kernel once an evaluation
-     (``count_ba``), as in every later drive; frames 40..59 traced with
+     kernel once per keyframe built, the BA kernel once an evaluation
+     (``count_ba``) and the bootstrap kernel once a level of each tracked
+     bootstrap frame (``count_bootstrap``), as in every later drive; the
+     frames to initialize and the bootstrap's seconds, whole (first
+     ``add_frame`` to initialized) and a frame; frames 40..59 traced with
      torch.profiler (device kernels per frame, the device's busy share,
      host and device ms of the pyramid, the tracker, the trace and the
      keyframe path, and of the keyframe path's stages per keyframe:
@@ -50,9 +54,11 @@ Phases, one result line each (any failure raises and exits non-zero):
      ``ba_split``, with the calls of ``precompute_pairs``, the pair tables
      in torch, that the kernel's path no longer makes; each hand kernel's
      device ms a frame), the tracking and
-     trace inputs of frames 20, 60 and 100 kept, and the activation and
+     trace inputs of frames 20, 60 and 100 kept, the activation and
      ``run_ba`` inputs of the first two keyframes after frame 20 and one
-     point fold's;
+     point fold's, and the bootstrap's: the pyramids of ``set_first`` and
+     of each ``CoarseInitializer.track`` call, and the arguments of every
+     ``init2f.init_level`` call;
   4b. the tracker kernel on those real inputs: at each of the five levels,
      as ``track_frame`` chains them, the kernel (a one-level launch)
      against ``track_level_torch`` (T, ab, the rmse of every lane, the
@@ -97,6 +103,15 @@ Phases, one result line each (any failure raises and exits non-zero):
      host ms and the plain version's ms, and the device kernels of one
      ``run_ba`` call of each version (none of them ``precompute_pairs``'
      on the kernel's path);
+  4e. the bootstrap kernel (K6) on those real inputs: each bootstrap
+     frame's levels, on the plain chain's inputs, against
+     ``init2f.init_level_torch`` (``check_init_frame``: T, energy, good and
+     the depths to the bounds of tests/test_torch_init.py, a level whose
+     accept ladders part at a tie held to G1's bounds, bit for bit against
+     a second launch), the whole bootstrap on the kept pyramids against the
+     plain one (``check_bootstrap``: the same frames snap and finish, G1's
+     bounds on ``results()``), and on the last bootstrap frame each level's
+     device ms, microseconds an iteration, plain ms and bound;
   5. loop closure: the loop sequence of the JAX package's
      ``bench.py::bench_loop_closure`` (``preset("default")``, 320x240, 240
      frames, seed 5, out_and_back, uint8) driven twice, loop closure off
@@ -164,7 +179,7 @@ Phases, one result line each (any failure raises and exits non-zero):
      references. A rank that fails, or has not ended within
      ``DIST_TIMEOUT_S``, fails the phase.
 Then a JSON line of per-kernel results (pyramid, track_level, trace,
-activate, ba_assemble), the card line again, and as the
+activate, ba_assemble, init_level), the card line again, and as the
 last line ``{"ok": true, "device": {...}}``. There is no CPU path; the CPU
 tests (tests/test_torch_distributed.py) run phase 8's rank program at
 ``preset("tiny")``.
@@ -321,6 +336,39 @@ K4_LADDER_TIE_RTOL, K4_X_ATOL, K4_C_RTOL, K4_IDEPTH_RTOL, K4_IDEPTH_ATOL = (
 # entry each lane of a slot group makes again (~130) is not work the
 # evaluation needs: the [F, F] tables are ~150 flops an entry
 K4_FLOPS_REQ, K4_FLOPS_VALID, K4_FLOPS_FEJ, K4_FLOPS_ENERGY = 32, 1000, 45, 60
+# the bootstrap kernel (K6) against its plain version (phase 4e), level by
+# level on the plain chain's inputs of every bench bootstrap frame: the
+# bounds of tests/test_torch_init.py::test_init_level (T atol, idepth and iR
+# atol + rtol |plain|, energy rtol; float32 GN over 1024 points x 8 samples,
+# sums in another order), good equal but for INIT_POINTS_PARTED points, and
+# idepth and iR within their bounds but for INIT_POINTS_PARTED points: a
+# weakly held point's depth moves by more than its bound when the plain
+# version's own idepth0 moves by one ulp (up to 373 points of 1024 on a
+# bench level: scripts/torch_init_sensitivity.py). Where a level misses the
+# depth bounds and the two accept ladders part first at an energy tie (E' within
+# INIT_TIE_RTOL of E, relative, in both runs: a decision the float32 sums
+# cannot resolve), the level is counted and its depths are held to G1's
+# bounds instead (tests/test_torch_init.py::test_bootstrap_sequence, after
+# results()'s scale normalization: INIT_G1_*), T, energy and good still to
+# the bounds above. After the snap the joint scale of t and the depths is a
+# free gauge (ROADMAP G1): the energy is flat along it, the last steps of a
+# level are ties, and any level may part; before the snap the priors pin
+# the gauge, and more than INIT_MAX_PARTED such levels in one bootstrap
+# frame fail the check
+INIT_T_ATOL, INIT_ID_RTOL, INIT_ID_ATOL, INIT_E_RTOL, INIT_POINTS_PARTED = (
+    1e-4, 2e-3, 2e-4, 1e-3, 2)
+INIT_TIE_RTOL, INIT_MAX_PARTED = 1e-5, 1
+INIT_G1_BOTH, INIT_G1_IDEPTH, INIT_G1_ROT, INIT_G1_COS = 0.98, 0.01, 5e-3, 0.999
+# flops of csrc/init_level.cu, as one thread does them: a sample's ray,
+# projection and bounds test 36 in every evaluation; a sample with om > 0
+# also its bilinear (I, dx, dy) 33, residual and Huber weight 9, Jx and Jd
+# 49, its terms of the sums 124 (215); a point's level coordinates, prior
+# and counts 12 an evaluation; a point's Schur terms 100 and update 30 an
+# iteration, beside its median (K (K - 1) / 2 compare-swaps of 2); a step
+# (the damped 8x9 system 99, LU 400, back substitution 64, the exponential
+# and T' 260, the rest 17) 840 an iteration
+INIT_FLOPS_SAMPLE, INIT_FLOPS_OK, INIT_FLOPS_POINT = 36, 215, 12
+INIT_FLOPS_UPDATE, INIT_FLOPS_STEP = 130, 840
 
 
 def _card_line() -> str:
@@ -564,6 +612,7 @@ def drive_bench(cfg, ds, frames, dev, sync, probe=None) -> dict:
     return dict(ate=ate, n_tracked=statuses.count("tracked"), n_kf=len(system.kfs),
                 n_marg=n_marg, n_corner_act=n_corner_act,
                 n_init=statuses.index("initialized") + 1,
+                t_boot=t_frames[:statuses.index("initialized") + 1],
                 fps=len(t_rate) / sum(t_rate), n_rate=len(t_rate),
                 fps_all=fps_all, latency_ms=list(system.frame_latency_ms))
 
@@ -602,7 +651,9 @@ class BenchProbe:
     ``record_function`` label, and inside the keyframe path the
     activation, the BA, the finish (marginalization) and the seeding and
     tracker-ref rebuild, and inside the BA its parts (``BA_LABELS``); it
-    keeps the host-clock wall time."""
+    keeps the host-clock wall time. From frame 0 to the end of the
+    bootstrap it keeps the arguments of the bootstrap's calls
+    (``_watch_bootstrap``: ``boot``)."""
 
     LABELS = ("pyramid", "tracker", "trace", "keyframe", "kf_activate", "run_ba", "finish_kf",
               "seed_ref")
@@ -618,12 +669,14 @@ class BenchProbe:
     # launches)
     KERNELS = {"pyramid": ("pyramid_kernel",), "track_level": ("track_levels_kernel",),
                "trace": ("trace_bank_kernel",), "activate": ("activate_bank_kernel",),
-               "ba_assemble": ("ba_kernel", "ba_linearize_kernel", "ba_reduce_kernel")}
+               "ba_assemble": ("ba_kernel", "ba_linearize_kernel", "ba_reduce_kernel"),
+               "init_level": ("init_level_kernel",)}
 
     def __init__(self, capture, profile, act_after: int = ACT_AFTER, act_keep: int = ACT_KEEP):
         self.capture, self.profile = tuple(capture), tuple(profile)
         self.act_after, self.act_keep = act_after, act_keep
         self.inputs, self.activations, self.ba_calls, self.marg_calls = {}, [], [], []
+        self.boot, self._boot_undo, self._n_boot = [], [], 0
         self.prof, self.wall_s, self._t0 = None, 0.0, 0.0
         self._undo, self._keepers = [], {}
 
@@ -667,6 +720,34 @@ class BenchProbe:
         self._keep(i, marginal, "marginalize_points", self.marg_calls, 1,
                    lambda win, mask, *rest: bool(np.asarray(mask).any()))
 
+    def _watch_bootstrap(self) -> None:
+        """Keep (cloned) the arguments of every ``CoarseInitializer.set_first``
+        and ``track`` call, a record each in ``boot`` (``pyr``, with
+        set_first's ``gsq``), and of every ``init2f.init_level`` call, as
+        (args, keywords) in the ``levels`` of the record of the call it
+        serves."""
+        from ldso_tpu_torch import init2f
+
+        cls, boot = init2f.CoarseInitializer, self.boot
+        first, track, level = cls.set_first, cls.track, init2f.init_level
+
+        def kept_first(init, pyr, gsq):
+            boot.append(dict(pyr=_clone(pyr), gsq=_clone(gsq), levels=[]))
+            return first(init, pyr, gsq)
+
+        def kept_track(init, pyr_new):
+            boot.append(dict(pyr=_clone(pyr_new), levels=[]))
+            return track(init, pyr_new)
+
+        def kept_level(*args, **kw):
+            boot[-1]["levels"].append((_clone(args), _clone(kw)))
+            return level(*args, **kw)
+
+        for obj, name, fn in ((cls, "set_first", kept_first), (cls, "track", kept_track),
+                              (init2f, "init_level", kept_level)):
+            self._boot_undo.append((obj, name, getattr(obj, name)))
+            setattr(obj, name, fn)
+
     def before(self, i: int) -> None:
         import torch
 
@@ -674,6 +755,9 @@ class BenchProbe:
         from ldso_tpu_torch.ba import residuals, solve
         from ldso_tpu_torch.system import FullSystem
 
+        if i == 0:
+            self._watch_bootstrap()
+        self._n_boot = len(self.boot)
         self._keepers_step(i)
         if i in self.capture:
             rec = self.inputs.setdefault(i, {})
@@ -720,6 +804,10 @@ class BenchProbe:
             self._t0 = time.perf_counter()
 
     def after(self, i: int) -> None:
+        # the bootstrap ends at the first frame that neither selects nor tracks
+        while self._boot_undo and len(self.boot) == self._n_boot:
+            obj, name, orig = self._boot_undo.pop()
+            setattr(obj, name, orig)
         self._keepers_step(i)
         if self.profile and i == self.profile[-1]:
             self.wall_s = time.perf_counter() - self._t0
@@ -810,8 +898,12 @@ def _hand_launches() -> int:
     from ldso_tpu_torch.kernels import ba, pallas_pyramid, track_level
     from ldso_tpu_torch.kernels import trace as trace_kernel
 
+    # a package without the bootstrap kernel (an earlier checkout), or one
+    # that has not imported it yet, has launched none
+    init_level = sys.modules.get("ldso_tpu_torch.kernels.init_level")
     return (pallas_pyramid.LAUNCHES + track_level.LAUNCHES + trace_kernel.LAUNCHES_TRACE
-            + trace_kernel.LAUNCHES_ACTIVATE + ba.LAUNCHES)
+            + trace_kernel.LAUNCHES_ACTIVATE + ba.LAUNCHES
+            + (init_level.LAUNCHES if init_level is not None else 0))
 
 
 def _device_events(fn) -> tuple:
@@ -2239,6 +2331,294 @@ def check_run_ba(name: str, args, kw) -> dict:
     return compare_run_ba(name, w_k, s_k, w_p, s_p)
 
 
+@contextlib.contextmanager
+def plain_init():
+    """Within the block, ``init2f.CoarseInitializer.track`` runs its levels
+    through the plain version ``init_level_torch`` also on the card: the
+    yardstick of the kernel, never the port's path."""
+    from ldso_tpu_torch import init2f
+
+    kernel = init2f.init_level
+    init2f.init_level = init2f.init_level_torch
+    try:
+        yield
+    finally:
+        init2f.init_level = kernel
+
+
+@contextlib.contextmanager
+def count_bootstrap():
+    """Within the block, count the frames ``CoarseInitializer.track``
+    tracks against the first (on whichever thread); yields a one-item list
+    holding the count."""
+    from ldso_tpu_torch.init2f import CoarseInitializer
+
+    with count_calls(CoarseInitializer, "track") as made:
+        yield made
+
+
+def _check_init_launches(phase: str, launched: int, tracked: int) -> None:
+    """One bootstrap kernel launch for each level of each tracked bootstrap
+    frame, and at least one such frame."""
+    if tracked < 1 or launched != LEVELS * tracked:
+        raise RuntimeError(f"{phase}: bootstrap kernel launched {launched} times for {tracked} "
+                           f"tracked bootstrap frames, expected {LEVELS * tracked}")
+
+
+def init_level_chain(levels):
+    """Walk one bootstrap frame's kept ``init_level`` calls (``levels``,
+    coarsest first, each (args, keywords)) as ``CoarseInitializer.track``
+    chains them, with the plain version: yields (args, keywords, the plain
+    result, its ladder [iters, 2]); from the second level on the state
+    arguments (T, ab, idepth, iR, good) are the plain result of the level
+    before."""
+    import torch
+
+    from ldso_tpu_torch import init2f
+
+    state = None
+    for args, kw in levels:
+        if state is not None:
+            args = tuple(args[:4]) + state + tuple(args[9:])
+        ladder = []
+        out_p = init2f.init_level_torch(*args, **kw, ladder=ladder)
+        lad = (torch.stack([torch.stack(e) for e in ladder]) if ladder
+               else torch.zeros((0, 2), device=args[1].device))
+        yield args, kw, out_p, lad
+        state = (out_p.T, out_p.ab, out_p.idepth, out_p.iR, out_p.good)
+
+
+def ladder_parting(lad_k, lad_p):
+    """Where two runs' accept ladders ([iters, 2]: E and the trial's E'
+    each iteration; accept iff E' < E) first decide apart: None if they
+    never do, else (iteration, each run's relative energy change (E - E') /
+    E there, whether both are within INIT_TIE_RTOL: a tie)."""
+    import numpy as np
+
+    a, b = np.asarray(lad_k, np.float64), np.asarray(lad_p, np.float64)
+    acc_a, acc_b = a[:, 1] < a[:, 0], b[:, 1] < b[:, 0]
+    parted = np.flatnonzero(acc_a != acc_b)
+    if not len(parted):
+        return None
+    i = int(parted[0])
+    rho = [float((x[i, 0] - x[i, 1]) / max(abs(x[i, 0]), 1e-30)) for x in (a, b)]
+    return dict(it=i, rho_k=rho[0], rho_p=rho[1],
+                tie=bool(max(abs(r) for r in rho) <= INIT_TIE_RTOL))
+
+
+def init_normalized(T, iR, idepth, good) -> dict:
+    """``CoarseInitializer.results()`` of a state: the depths (iR) rescaled
+    to mean 1 over the good points with idepth > 0, the translation by the
+    same factor."""
+    import numpy as np
+
+    good = np.asarray(good) & (np.asarray(idepth) > 0)
+    d = np.asarray(iR, np.float64)
+    rescale = 1.0 / max(float(np.mean(d[good])) if good.any() else 1.0, 1e-6)
+    T = np.asarray(T, np.float64).copy()
+    T[:3, 3] /= rescale
+    return dict(T_first_to_new=T, idepth=d * rescale, good=good)
+
+
+def g1_compare(ra: dict, rb: dict) -> dict:
+    """Two normalized bootstrap results (``init_normalized`` or
+    ``results()``) against G1's bounds: the points good in both, the
+    median relative depth gap, the rotation gap (rad) and the cosine of the
+    translations."""
+    import numpy as np
+
+    both = ra["good"] & rb["good"]
+    frac = float(both.sum()) / max(int(ra["good"].sum()), int(rb["good"].sum()), 1)
+    rel = np.abs(rb["idepth"][both] - ra["idepth"][both]) / ra["idepth"][both]
+    med = float(np.median(rel)) if both.any() else float("inf")
+    Ra, Rb = ra["T_first_to_new"][:3, :3], rb["T_first_to_new"][:3, :3]
+    rot = float(np.arccos(np.clip((np.trace(Rb @ Ra.T) - 1) / 2, -1, 1)))
+    ta, tb = ra["T_first_to_new"][:3, 3], rb["T_first_to_new"][:3, 3]
+    cos = float(ta @ tb / (np.linalg.norm(ta) * np.linalg.norm(tb)))
+    return dict(both=frac, idepth=med, rot=rot, cos=cos,
+                ok=bool(frac >= INIT_G1_BOTH and med < INIT_G1_IDEPTH and rot < INIT_G1_ROT
+                        and cos > INIT_G1_COS))
+
+
+def _init_texels(args, kw, states) -> int:
+    """The distinct texels of a level's [h, w, 3] stack whose bilinear
+    corners the evaluations at ``states`` ((T, idepth, good) each) read:
+    the samples in bounds of good points, as csrc/init_level.cu skips the
+    rest."""
+    import torch
+
+    from ldso_tpu_torch.cameras import level_intrinsics
+    from ldso_tpu_torch.core.window import pattern
+
+    img3, uv, intr0, level = args[0], args[1], args[9], kw["level"]
+    h, w = img3.shape[0], img3.shape[1]
+    s = 0.5 ** level
+    fx, fy, cx, cy = level_intrinsics(intr0, level)
+    uvp = (uv * s + (0.5 * s - 0.5))[:, None, :] + pattern(uv.device)[None]
+    xh = torch.stack([(uvp[..., 0] - cx) / fx, (uvp[..., 1] - cy) / fy,
+                      torch.ones_like(uvp[..., 0])], -1)
+    idx = []
+    for T, d, good in states:
+        X = xh @ T[:3, :3].T + T[:3, 3] * d[:, None, None]
+        okz = X[..., 2] > 1e-6
+        zs = torch.where(okz, X[..., 2], torch.ones_like(X[..., 2]))
+        un, vn = fx * X[..., 0] / zs + cx, fy * X[..., 1] / zs + cy
+        use = (un >= 2) & (un < w - 3) & (vn >= 2) & (vn < h - 3) & okz & good[:, None]
+        u0, v0 = un[use].floor().long(), vn[use].floor().long()
+        idx += [v0 * w + u0, v0 * w + u0 + 1, (v0 + 1) * w + u0, (v0 + 1) * w + u0 + 1]
+    return int(torch.cat(idx).unique().numel()) if idx else 0
+
+
+def init_level_bound_ms(args, kw, out_k) -> tuple:
+    """The least time the card could take for one level's GN loop as this
+    run's data drove it (``out_k``, the kernel's ``LevelOut``): the larger
+    of its bytes over the memory rate and its operations over the float32
+    rate. Bytes: the texels read at the start and the final state (both are
+    evaluated; the trial states between read more), 12 B each, each point's
+    inputs (uv, colors, neighbours, idepth, iR, good) and outputs once, the
+    pose, affine and intrinsics. Operations: INIT_FLOPS_SAMPLE a sample and
+    INIT_FLOPS_POINT a point in each of the 1 + iters evaluations,
+    INIT_FLOPS_OK for each sample with om > 0 (the kernel's ``n_ok_sum``),
+    INIT_FLOPS_UPDATE and a median a point and INIT_FLOPS_STEP an iteration.
+    Returns (ms, bound_by, bytes, flops)."""
+    n, k = args[3].shape
+    iters = kw["iters"]
+    texels = _init_texels(args, kw, [(args[4], args[6], args[8]),
+                                     (out_k.T, out_k.idepth, out_k.good)])
+    n_bytes = 12 * texels + n * (49 + 4 * k) + n * 9 + 2 * 18 * 4 + 16 + 8 + 16
+    flops = ((INIT_FLOPS_SAMPLE * 8 + INIT_FLOPS_POINT) * n * (1 + iters)
+             + INIT_FLOPS_OK * int(out_k.n_ok_sum)
+             + (INIT_FLOPS_UPDATE + k * (k - 1)) * n * iters + INIT_FLOPS_STEP * iters)
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
+    return (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
+            n_bytes, flops)
+
+
+def compare_init_level(out_k, out_p) -> dict:
+    """The kernel's result on one level against the plain one's: the
+    largest errors against the bounds above (idepth and iR as error over
+    bound), the points beyond them and the good points that differ;
+    ``held``: T, energy and good within their bounds, ``depths_held``: the
+    depths too."""
+    import torch
+
+    def over(a, b):
+        return (a - b).abs() / (INIT_ID_ATOL + INIT_ID_RTOL * b.abs())
+
+    r_d, r_iR = over(out_k.idepth, out_p.idepth), over(out_k.iR, out_p.iR)
+    e_T = float((out_k.T - out_p.T).abs().max())
+    n_good = int((out_k.good != out_p.good).sum())
+    e_E = abs(float(out_k.energy) - float(out_p.energy)) / max(abs(float(out_p.energy)), 1e-30)
+    n_d, n_iR = int((r_d > 1).sum()), int((r_iR > 1).sum())
+    max_abs = max(e_T, float((out_k.idepth - out_p.idepth).abs().max()),
+                  float((out_k.iR - out_p.iR).abs().max()))
+    held = (e_T <= INIT_T_ATOL and n_good <= INIT_POINTS_PARTED and e_E <= INIT_E_RTOL
+            and bool(torch.isfinite(out_k.T).all()))
+    return dict(e_T=e_T, e_idepth=float(r_d.max()), e_iR=float(r_iR.max()), n_idepth=n_d,
+                n_iR=n_iR, good_parted=n_good, e_E=e_E, max_abs_err=max_abs, held=held,
+                depths_held=bool(n_d <= INIT_POINTS_PARTED and n_iR <= INIT_POINTS_PARTED))
+
+
+def check_init_frame(name: str, levels, time_it: bool = False) -> list:
+    """Hold the bootstrap kernel against the plain version on one bootstrap
+    frame's kept ``init_level`` calls, level by level on the plain chain's
+    inputs (``init_level_chain``), by the bounds above: T, energy and good
+    on every level; the depths too, or, where they miss and the two accept
+    ladders part first at a tie (``ladder_parting``), G1's bounds on the
+    normalized states (``g1_compare``), before the snap on at most
+    INIT_MAX_PARTED levels; a second launch the same bits. Returns a record
+    per level; with ``time_it`` also the kernel's device ms and the plain
+    version's host-clock ms."""
+    import torch
+
+    from ldso_tpu_torch import init2f
+    from ldso_tpu_torch.kernels import init_level as kinit
+
+    records = []
+    for args, kw, out_p, lad_p in init_level_chain(levels):
+        out_k = kinit.init_level_cuda(*args, **kw, ladder=True)
+        again = kinit.init_level_cuda(*args, **kw, ladder=True)
+        torch.cuda.synchronize()
+        for field, a, b in zip(kinit.LevelOut._fields, out_k, again):
+            if not torch.equal(a, b):
+                raise RuntimeError(f"bootstrap kernel on {name}, level {kw['level']}: a second "
+                                   f"launch differs in {field}")
+        rec = dict(level=kw["level"], iters=kw["iters"], snapped=bool(kw["snapped"]),
+                   points=args[1].shape[0], w=args[0].shape[1], h=args[0].shape[0],
+                   **compare_init_level(out_k, out_p))
+        part = ladder_parting(out_k.ladder.cpu(), lad_p.cpu())
+        rec["parted_at"] = None if part is None else part["it"]
+        rec["tie"] = part
+        rec["g1"] = None
+        state = "snapped" if kw["snapped"] else "before the snap"
+        where = f"{name}, level {kw['level']} ({state})"
+        text = (f"max|dT| {rec['e_T']:.3g} (atol {INIT_T_ATOL}), energy rel {rec['e_E']:.3g} "
+                f"(rtol {INIT_E_RTOL}), good parted {rec['good_parted']}, idepth / iR error / "
+                f"bound {rec['e_idepth']:.3g} / {rec['e_iR']:.3g} on {rec['n_idepth']} / "
+                f"{rec['n_iR']} points (at most {INIT_POINTS_PARTED})")
+        if not rec["held"]:
+            raise RuntimeError(f"bootstrap kernel disagrees on {where}: {text}")
+        if not rec["depths_held"]:
+            if part is None or not part["tie"]:
+                raise RuntimeError(
+                    f"bootstrap kernel disagrees on {where}: {text}, and the ladders "
+                    + ("never part" if part is None else
+                       f"part at iteration {part['it']} with no tie (energy changes "
+                       f"{part['rho_k']:.3g} / {part['rho_p']:.3g})"))
+            g1 = rec["g1"] = g1_compare(
+                init_normalized(*(x.cpu().numpy() for x in
+                                  (out_p.T, out_p.iR, out_p.idepth, out_p.good))),
+                init_normalized(*(x.cpu().numpy() for x in
+                                  (out_k.T, out_k.iR, out_k.idepth, out_k.good))))
+            if not g1["ok"]:
+                raise RuntimeError(f"bootstrap kernel on {where}: {text}; the ladders part at a "
+                                   f"tie at iteration {part['it']}, and the normalized states "
+                                   f"miss G1's bounds: {g1}")
+        rec["bound_ms"], rec["bound_by"], rec["bytes"], rec["flops"] = \
+            init_level_bound_ms(args, kw, out_k)
+        if time_it:
+            rec["ms"] = _device_ms(lambda: kinit.init_level_cuda(*args, **kw), n=5, reps=5)
+            rec["us_iter"] = 1e3 * rec["ms"] / max(kw["iters"], 1)
+            rec["plain_ms"] = _timed_ms(lambda: init2f.init_level_torch(*args, **kw),
+                                        torch.cuda.synchronize, reps=2)
+        records.append(rec)
+    n_parted = sum(1 for r in records if r["g1"] is not None and not r["snapped"])
+    if n_parted > INIT_MAX_PARTED:
+        raise RuntimeError(f"bootstrap kernel on {name}: {n_parted} levels before the snap held "
+                           f"to G1 after a tie, more than {INIT_MAX_PARTED}")
+    return records
+
+
+def check_bootstrap(boot, cfg, intr, dev) -> dict:
+    """The whole bootstrap on the kept pyramids (``boot``: the record of
+    ``set_first`` with its pyramid and gsq, then one of each tracked frame,
+    as ``BenchProbe`` keeps them) through the kernel and through the plain
+    version (``plain_init``), each on a fresh ``CoarseInitializer``: the
+    same frames snap and finish, n_good within INIT_POINTS_PARTED a frame,
+    and the two ``results()`` within G1's bounds. Returns the numbers."""
+    from ldso_tpu_torch.init2f import CoarseInitializer
+
+    runs = {}
+    for name, ctx in (("kernel", contextlib.nullcontext()), ("plain", plain_init())):
+        init = CoarseInitializer(cfg, intr, dev)
+        with ctx:
+            init.set_first(boot[0]["pyr"], boot[0]["gsq"])
+            sts = [init.track(rec["pyr"]) for rec in boot[1:]]
+        runs[name] = (sts, init.results())
+    (sk, rk), (sp, rp) = runs["kernel"], runs["plain"]
+    flags = [((a["snapped"], a["done"]), (b["snapped"], b["done"])) for a, b in zip(sk, sp)]
+    d_good = max(abs(a["n_good"] - b["n_good"]) for a, b in zip(sk, sp))
+    g1 = g1_compare(rp, rk)
+    rec = dict(frames=len(sk), snapped_at=next((i for i, s in enumerate(sk) if s["snapped"]), None),
+               done=sk[-1]["done"], d_good=d_good, g1=g1)
+    if any(a != b for a, b in flags) or d_good > INIT_POINTS_PARTED or not g1["ok"] \
+            or not sk[-1]["done"]:
+        raise RuntimeError(f"bootstrap with the kernel parts from the plain one: (snapped, done) "
+                           f"a frame {flags}, n_good within {d_good} (at most "
+                           f"{INIT_POINTS_PARTED}), G1 {g1}")
+    return rec
+
+
 def _pctl(xs, q: float) -> float:
     xs = sorted(xs)
     return xs[min(len(xs) - 1, int(round(q * (len(xs) - 1))))]
@@ -3092,6 +3472,7 @@ def main() -> int:
     import ldso_tpu_torch  # noqa: F401  (sets the float32 precision flags)
     from ldso_tpu_torch.kernels import ba as ba_kernel
     from ldso_tpu_torch.kernels import cuda_build, pallas_pyramid, track_level
+    from ldso_tpu_torch.kernels import init_level as init_kernel
     from ldso_tpu_torch.kernels import trace as trace_kernel
     from ldso_tpu_torch.kernels.pyramid import build_pyramid_torch
 
@@ -3119,7 +3500,7 @@ def main() -> int:
     n_workers = min(8, os.cpu_count() or 1)
     with concurrent.futures.ProcessPoolExecutor(
             max_workers=n_workers, mp_context=multiprocessing.get_context("spawn")) as renders, \
-            concurrent.futures.ThreadPoolExecutor(max_workers=9) as pool:
+            concurrent.futures.ThreadPoolExecutor(max_workers=14) as pool:
         # the dataset first: its frames cost the most (rendered larger,
         # warped through the lens, PNG-encoded)
         futures = [
@@ -3136,9 +3517,11 @@ def main() -> int:
                               trace_kernel.NO_FMAD),
                   pool.submit(ba_kernel.build),
                   pool.submit(cuda_build.ptxas_report, ba_kernel.SOURCE, (), ba_kernel.NO_FMAD),
+                  pool.submit(init_kernel.build),
+                  pool.submit(cuda_build.ptxas_report, init_kernel.SOURCE),
                   pool.submit(native.available)]
-        (lib, lib_track, lib_phases, lib_trace, ptxas, ptxas_trace, lib_ba, ptxas_ba,
-         has_native) = (b.result() for b in builds)
+        (lib, lib_track, lib_phases, lib_trace, ptxas, ptxas_trace, lib_ba, ptxas_ba, lib_init,
+         ptxas_init, has_native) = (b.result() for b in builds)
         reason = ""
         if not has_native:
             lines = (native.unavailable_reason() or "no reason given").strip().splitlines()
@@ -3148,7 +3531,8 @@ def main() -> int:
               f"({ptxas_kernels(ptxas)}), {os.path.relpath(lib_phases, root)} (the tracker "
               f"kernel with -DTRACK_LEVEL_PHASES), {os.path.relpath(lib_trace, root)} "
               f"(-fmad=false; {ptxas_kernels(ptxas_trace)}), {os.path.relpath(lib_ba, root)} "
-              f"(-fmad=false; {ptxas_kernels(ptxas_ba)}); native image loader "
+              f"(-fmad=false; {ptxas_kernels(ptxas_ba)}), {os.path.relpath(lib_init, root)} "
+              f"({ptxas_kernels(ptxas_init)}); native image loader "
               f"{'built' if has_native else 'NOT built'}{reason}; frames will be decoded by "
               f"'{datasets.active_decoder()}'; {time.perf_counter() - t0:.2f} s", flush=True)
         (tum_root, tum_gt), (ds, frames), (lds, lframes) = (f.result() for f in futures)
@@ -3226,11 +3610,13 @@ def main() -> int:
     track_level.reset_launches()
     trace_kernel.reset_launches()
     ba_kernel.reset_launches()
+    init_kernel.reset_launches()
     probe = BenchProbe(TRACK_CAPTURE, TRACK_PROFILE)
     from ldso_tpu_torch import frame_step as fs_mod
     from ldso_tpu_torch import trace as tr_mod
 
     with count_keyframes() as kf_main, count_ba() as ba_main_evals, \
+            count_bootstrap() as boot_main, \
             count_calls(fs_mod, "trace_slot_tables") as trace_tables_main, \
             count_calls(tr_mod, "activation_slot_tables") as act_tables_main:
         main = drive_bench(preset("default"), ds, frames, dev, sync=sync, probe=probe)
@@ -3243,6 +3629,7 @@ def main() -> int:
     track_main = track_level.LAUNCHES
     trace_main, act_main = trace_kernel.LAUNCHES_TRACE, trace_kernel.LAUNCHES_ACTIVATE
     ba_main = ba_kernel.LAUNCHES
+    init_main = init_kernel.LAUNCHES
     # one launch per frame: a bootstrap frame builds one pyramid too
     if launches_main != len(frames) or main["n_tracked"] == 0:
         raise RuntimeError(f"pyramid kernel launched {launches_main} times for "
@@ -3250,6 +3637,7 @@ def main() -> int:
     _check_track_launches("phase 4", track_main, main["n_tracked"])
     _check_trace_launches("phase 4", trace_main, act_main, main["n_tracked"], kf_main[0])
     _check_ba_launches("phase 4", ba_main, ba_main_evals[0])
+    _check_init_launches("phase 4", init_main, boot_main[0])
     print(f"main path: {len(frames)} frames ({main['n_init']} to initialize, "
           f"{main['n_tracked']} tracked, 0 lost), {main['n_kf']} KFs ({main['n_marg']} "
           f"marginalized), {main['n_corner_act']} corner-seeded activations, ATE "
@@ -3263,8 +3651,15 @@ def main() -> int:
           f"keyframe built, {kf_main[0]}; trace_slot_tables / activation_slot_tables "
           f"called {trace_tables_main[0]} / {act_tables_main[0]} times), BA kernel launches "
           f"{ba_main} "
-          f"({ba_kernel.PER_EVALUATION} per evaluation, {ba_main_evals[0]} evaluations), phase "
-          f"wall time {time.perf_counter() - t_phase:.1f} s | {card}", flush=True)
+          f"({ba_kernel.PER_EVALUATION} per evaluation, {ba_main_evals[0]} evaluations), "
+          f"bootstrap kernel launches {init_main} ({LEVELS} per tracked bootstrap frame, "
+          f"{boot_main[0]} frames), phase wall time {time.perf_counter() - t_phase:.1f} s "
+          f"| {card}", flush=True)
+    boot_s = sum(main["t_boot"])
+    print(f"bootstrap: {main['n_init']} frames to initialize ({boot_main[0]} tracked against the "
+          f"first), {boot_s:.3f} s from the first add_frame to initialized (host clock, "
+          f"synchronized per frame; the probe's copies of its inputs included), per frame "
+          + ", ".join(f"{t:.3f}" for t in main["t_boot"]) + f" s | {card}", flush=True)
     prof = probe.summary()
     split = ", ".join(f"{k} {prof[k]['host_ms']:.2f} ms host / {prof[k]['device_ms']:.3f} ms "
                       f"device ({prof[k]['calls']} calls)" for k in BenchProbe.LABELS)
@@ -3506,16 +3901,78 @@ def main() -> int:
           f"(torch.profiler); phase wall time {time.perf_counter() - t_phase:.1f} s | {card}",
           flush=True)
 
+    # ---- 4e. the bootstrap kernel on the main path's bootstrap
+    t_phase = time.perf_counter()
+    first = max(j for j, rec in enumerate(probe.boot) if "gsq" in rec)
+    boot = probe.boot[first:]
+    if len(boot) != main["n_init"] or any(len(rec["levels"]) != LEVELS for rec in boot[1:]):
+        raise RuntimeError(f"phase 4 kept {len(boot)} bootstrap frames of {main['n_init']}, "
+                           f"levels {[len(rec['levels']) for rec in boot[1:]]}")
+    init_recs = []
+    for j, rec in enumerate(boot[1:]):
+        lrecs = check_init_frame(f"bootstrap frame {j + 1}", rec["levels"],
+                                 time_it=(j == len(boot) - 2))
+        init_recs.append(lrecs)
+        print(f"kernel init_level vs plain [bootstrap frame {j + 1} of {len(boot) - 1}, "
+              f"{lrecs[0]['points']} points, "
+              f"{'snapped' if lrecs[0]['snapped'] else 'before the snap'}"
+              f", the plain chain's inputs]: " + "; ".join(
+                  f"L{r['level']} {r['w']}x{r['h']} {r['iters']} it: max|dT| {r['e_T']:.3g}, "
+                  f"idepth / iR error / bound {r['e_idepth']:.3g} / {r['e_iR']:.3g} ({r['n_idepth']}"
+                  f" / {r['n_iR']} points beyond), good parted {r['good_parted']}, energy rel "
+                  f"{r['e_E']:.3g}, ladders "
+                  + ("equal" if r["parted_at"] is None else f"part at iteration {r['parted_at']}")
+                  + ("" if r["g1"] is None else
+                     f" (a tie: held to G1, median idepth {r['g1']['idepth']:.3g}, rotation "
+                     f"{r['g1']['rot']:.3g}, cos {r['g1']['cos']:.6f})") for r in lrecs)
+              + f"; bitwise equal in a second launch (bounds: T {INIT_T_ATOL}, energy rtol "
+                f"{INIT_E_RTOL}, good, idepth and iR (atol {INIT_ID_ATOL} + rtol {INIT_ID_RTOL})"
+                f" but for {INIT_POINTS_PARTED} points; the depths of a level whose ladders part "
+                f"at a tie (rtol {INIT_TIE_RTOL}) held to G1, before the snap at most "
+                f"{INIT_MAX_PARTED} a frame) | {card}", flush=True)
+    bb = check_bootstrap(boot, preset("default"), ds.intrinsics(), dev)
+    print(f"bootstrap, kernel against plain on the kept pyramids: {bb['frames']} frames tracked, "
+          f"snapped at frame {bb['snapped_at']} and finished on the last in both, n_good within "
+          f"{bb['d_good']} (at most {INIT_POINTS_PARTED}); results() both good "
+          f"{bb['g1']['both']:.4f}"
+          f", median idepth gap {bb['g1']['idepth']:.3g} (bound {INIT_G1_IDEPTH}), rotation "
+          f"{bb['g1']['rot']:.3g} rad ({INIT_G1_ROT}), translation cos {bb['g1']['cos']:.6f} "
+          f"({INIT_G1_COS}) | {card}", flush=True)
+    timed = init_recs[-1]
+    init_ms = sum(r["ms"] for r in timed)
+    init_plain_ms = sum(r["plain_ms"] for r in timed)
+    init_bound_ms = sum(r["bound_ms"] for r in timed)
+    init_bound_by = max(("bytes", "operations"), key=lambda by: sum(
+        r["bound_ms"] for r in timed if r["bound_by"] == by))
+    init_err = max(r["max_abs_err"] for rs in init_recs for r in rs)
+    init_ties = sum(1 for rs in init_recs for r in rs if r["g1"] is not None)
+    init_parted = sum(1 for rs in init_recs for r in rs if r["parted_at"] is not None)
+    print(f"kernel init_level timing [bootstrap frame {len(boot) - 1}, one launch a level: device "
+          f"ms (queued behind a spin kernel) / us an iteration / plain ms (host clock, "
+          f"synchronized) / bound ms]: " + "; ".join(
+              f"L{r['level']} {r['ms']:.4f} / {r['us_iter']:.2f} / {r['plain_ms']:.2f} / "
+              f"{r['bound_ms']:.6f} by {r['bound_by']} ({r['bytes']} B, {r['flops']} flops)"
+              for r in timed)
+          + f"; the frame's {LEVELS} launches {init_ms:.4f} ms device, plain {init_plain_ms:.2f} "
+            f"ms, bound {init_bound_ms:.6f} ms (mostly by {init_bound_by}); levels whose ladders "
+            f"part anywhere {init_parted} of {sum(len(rs) for rs in init_recs)}, held to G1 "
+            f"{init_ties}; phase wall time {time.perf_counter() - t_phase:.1f} s | {card}",
+          flush=True)
+
     # ---- 5. loop closure on the loop sequence
     t_phase = time.perf_counter()
     pallas_pyramid.reset_launches()
     track_level.reset_launches()
     trace_kernel.reset_launches()
     ba_kernel.reset_launches()
-    with count_keyframes() as kf_loop, count_ba() as ba_loop_evals:
+    init_kernel.reset_launches()
+    with count_keyframes() as kf_loop, count_ba() as ba_loop_evals, \
+            count_bootstrap() as boot_loop:
         loop = drive_loop_pair(preset("default"), lds, lframes, dev, sync=sync)
     ba_loop = ba_kernel.LAUNCHES
+    init_loop = init_kernel.LAUNCHES
     _check_ba_launches("phase 5", ba_loop, ba_loop_evals[0])
+    _check_init_launches("phase 5", init_loop, boot_loop[0])
     launches_loop = pallas_pyramid.LAUNCHES
     track_loop = track_level.LAUNCHES
     trace_loop, act_loop = trace_kernel.LAUNCHES_TRACE, trace_kernel.LAUNCHES_ACTIVATE
@@ -3540,7 +3997,8 @@ def main() -> int:
           f"-> kf {loop['reloc']['kf_id']} with {loop['reloc']['n_inliers']} inliers, "
           f"center offset {loop['reloc']['d_est']:.4f} (bound {loop['reloc']['bound']:.4f}); "
           f"pyramid launches {launches_loop}, tracker launches {track_loop}, trace launches "
-          f"{trace_loop}, activation launches {act_loop}, BA kernel launches {ba_loop}; phase "
+          f"{trace_loop}, activation launches {act_loop}, BA kernel launches {ba_loop}, "
+          f"bootstrap kernel launches {init_loop} ({boot_loop[0]} bootstrap frames); phase "
           f"wall time "
           f"{time.perf_counter() - t_phase:.1f} s | {card}", flush=True)
 
@@ -3558,10 +4016,14 @@ def main() -> int:
         track_level.reset_launches()
         trace_kernel.reset_launches()
         ba_kernel.reset_launches()
-        with count_keyframes() as kf_async, count_ba() as ba_async_evals:
+        init_kernel.reset_launches()
+        with count_keyframes() as kf_async, count_ba() as ba_async_evals, \
+                count_bootstrap() as boot_async:
             r = drive_async(preset("default"), *seq, dev, sync, ate_sync, **kw)
         r["ba_launches"] = ba_kernel.LAUNCHES
+        r["init_launches"] = init_kernel.LAUNCHES
         _check_ba_launches(name, r["ba_launches"], ba_async_evals[0])
+        _check_init_launches(name, r["init_launches"], boot_async[0])
         r["launches"] = pallas_pyramid.LAUNCHES
         r["track_launches"] = track_level.LAUNCHES
         r["trace_launches"] = trace_kernel.LAUNCHES_TRACE
@@ -3580,6 +4042,7 @@ def main() -> int:
     trace_async = sum(r["trace_launches"] for r in drives.values())
     act_async = sum(r["act_launches"] for r in drives.values())
     ba_async = sum(r["ba_launches"] for r in drives.values())
+    init_async = sum(r["init_launches"] for r in drives.values())
     print(f"async modes (free-running, host clock over the whole drive with its drain; "
           f"latency = add_frame to pose available) | {card}", flush=True)
     print(f"  sync, bench sequence (phase 4): {len(frames)} frames, "
@@ -3605,10 +4068,14 @@ def main() -> int:
     track_level.reset_launches()
     trace_kernel.reset_launches()
     ba_kernel.reset_launches()
-    with count_keyframes() as kf_cli, count_ba() as ba_cli_evals:
+    init_kernel.reset_launches()
+    with count_keyframes() as kf_cli, count_ba() as ba_cli_evals, \
+            count_bootstrap() as boot_cli:
         cli_run = drive_cli(tum_root, tum_gt, out_dir)
     ba_cli = ba_kernel.LAUNCHES
+    init_cli = init_kernel.LAUNCHES
     _check_ba_launches("phase 7 (CLI)", ba_cli, ba_cli_evals[0])
+    _check_init_launches("phase 7 (CLI)", init_cli, boot_cli[0])
     launches_cli = pallas_pyramid.LAUNCHES
     track_cli = track_level.LAUNCHES
     trace_cli, act_cli = trace_kernel.LAUNCHES_TRACE, trace_kernel.LAUNCHES_ACTIVATE
@@ -3622,10 +4089,14 @@ def main() -> int:
     track_level.reset_launches()
     trace_kernel.reset_launches()
     ba_kernel.reset_launches()
-    with count_keyframes() as kf_resume, count_ba() as ba_resume_evals:
+    init_kernel.reset_launches()
+    with count_keyframes() as kf_resume, count_ba() as ba_resume_evals, \
+            count_bootstrap() as boot_resume:
         resume = drive_resume(preset("default"), tum_root, out_dir, dev, sync)
     ba_resume = ba_kernel.LAUNCHES
+    init_resume = init_kernel.LAUNCHES
     _check_ba_launches("phase 7 (resume)", ba_resume, ba_resume_evals[0])
+    _check_init_launches("phase 7 (resume)", init_resume, boot_resume[0])
     launches_resume = pallas_pyramid.LAUNCHES
     track_resume = track_level.LAUNCHES
     trace_resume = trace_kernel.LAUNCHES_TRACE
@@ -3648,7 +4119,8 @@ def main() -> int:
           f"points, {cs['fps']} frames/s (the CLI's own clock, all frames; phase 4 "
           f"{main['fps_all']:.3f}), whole call {cli_run['wall']:.1f} s, pyramid launches "
           f"{launches_cli}, tracker launches {track_cli}, trace launches {trace_cli}, "
-          f"activation launches {act_cli}, BA kernel launches {ba_cli} | {card}", flush=True)
+          f"activation launches {act_cli}, BA kernel launches {ba_cli}, bootstrap kernel "
+          f"launches {init_cli} ({boot_cli[0]} bootstrap frames) | {card}", flush=True)
     print(f"  reader, per frame: decode {rt['decode_ms']:.3f} ms (host, zip read + PNG, no "
           f"prefetch), response + vignette + remap {rt['device_ms']:.4f} ms (device, CUDA "
           f"events), the two copies {rt['copy_ms']:.3f} ms (host clock), whole get_image "
@@ -3660,7 +4132,8 @@ def main() -> int:
           f"uninterrupted run {resume['gap']:.3g} (bound {RESUME_ATOL}), KFs "
           f"{resume['n_kf'][0]} / {resume['n_kf'][1]}, pyramid launches {launches_resume}, "
           f"tracker launches {track_resume}, trace launches {trace_resume}, activation "
-          f"launches {act_resume}, BA kernel launches {ba_resume}; "
+          f"launches {act_resume}, BA kernel launches {ba_resume}, bootstrap kernel launches "
+          f"{init_resume} ({boot_resume[0]} bootstrap frames); "
           f"phase wall time {time.perf_counter() - t_phase:.1f} s | {card}", flush=True)
 
     # ---- 8. the distributed solvers: ranks on the one card
@@ -3739,7 +4212,20 @@ def main() -> int:
         "plain_ms": br["plain_ms"], "bound_ms": br["bound_ms"], "bound_by": br["bound_by"],
         "library_ms": None, "run_ba_kernels": n_ba, "run_ba_kernels_plain": n_ba_p,
         "run_ba_host_ms": bs["host_ms"], "run_ba_device_ms": bs["device_ms"],
-        "run_ba_kernel_device_ms": bs["kernel_device_ms"]}]}), flush=True)
+        "run_ba_kernel_device_ms": bs["kernel_device_ms"]}, {
+        "name": "init_level", "route": "cuda", "source": "ldso_tpu_torch/csrc/init_level.cu",
+        "replaces": "ldso_tpu/init2f.py:52",
+        "launches": init_main + init_loop + init_async + init_cli + init_resume,
+        "launches_per_bootstrap_frame": LEVELS, "max_abs_err": init_err, "ties": init_ties,
+        "ladders_parted": init_parted,
+        "ms": init_ms, "ms_is": f"device, the {LEVELS} launches of bootstrap frame "
+        f"{len(boot) - 1} (one a level)", "plain_ms": init_plain_ms, "bound_ms": init_bound_ms,
+        "bound_by": init_bound_by, "library_ms": None,
+        "levels": {f"L{r['level']}": {"ms": r["ms"], "us_per_iteration": r["us_iter"],
+                                     "iterations": r["iters"], "plain_ms": r["plain_ms"],
+                                     "bound_ms": r["bound_ms"]} for r in timed},
+        "bootstrap_s": boot_s, "bootstrap_frames": main["n_init"],
+        "bootstrap_s_per_frame": main["t_boot"]}]}), flush=True)
     print(f"card: {_card_line()}", flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

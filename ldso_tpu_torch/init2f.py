@@ -5,7 +5,10 @@ the relative pose + affine (8 dof) and all per-point inverse depths, with
 the α-prior that pulls inverse depths to 1 and translation to 0 until
 parallax "snaps", then a neighbour-coupling prior toward a smoothed depth
 field ``iR`` (regularized to the neighbour median between iterations).
-The k-NN graph comes from scipy's cKDTree on the host, once.
+The k-NN graph comes from scipy's cKDTree on the host, once. A level's
+iterations run in one launch of the CUDA kernel ``csrc/init_level.cu``
+(K6, ``kernels/init_level.py``) for CUDA tensors, in the plain version
+``init_level_torch`` for CPU tensors.
 """
 
 from __future__ import annotations
@@ -47,9 +50,31 @@ def init_level(img3_new, uv, colors, neighbors, T0, ab0, idepth0, iR0, good0,
                alpha_w: float = 150.0 * 150.0, alpha_k: float = 2.5e5,
                coupling: float = 1.0, reg_weight: float = 0.8,
                huber_th: float = 9.0) -> InitLevelOut:
+    """GN iterations at one pyramid level: ``init_level_torch`` for CPU
+    tensors, the CUDA kernel (``kernels/init_level``, one launch a level)
+    for CUDA tensors."""
+    args = (img3_new, uv, colors, neighbors, T0, ab0, idepth0, iR0, good0, intr0)
+    kw = dict(level=level, iters=iters, snapped=snapped, alpha_w=alpha_w, alpha_k=alpha_k,
+              coupling=coupling, reg_weight=reg_weight, huber_th=huber_th)
+    if uv.device.type == "cpu":
+        return init_level_torch(*args, **kw)
+    if uv.device.type == "cuda":
+        from ldso_tpu_torch.kernels.init_level import init_level_cuda
+
+        return InitLevelOut(*init_level_cuda(*(a.contiguous() for a in args), **kw)[:8])
+    raise ValueError(f"no bootstrap level for device {uv.device}")
+
+
+def init_level_torch(img3_new, uv, colors, neighbors, T0, ab0, idepth0, iR0, good0,
+                     intr0, level: int, iters: int, snapped: bool,
+                     alpha_w: float = 150.0 * 150.0, alpha_k: float = 2.5e5,
+                     coupling: float = 1.0, reg_weight: float = 0.8,
+                     huber_th: float = 9.0, ladder: Optional[list] = None) -> InitLevelOut:
     """GN iterations at one pyramid level (reference: trackFrame's loop
-    over calcResAndGS / doStep / optReg). One system evaluation per
-    iteration: the current state's system is carried."""
+    over calcResAndGS / doStep / optReg), the plain torch version of the
+    kernel. One system evaluation per iteration: the current state's
+    system is carried. With a list ``ladder``, (E, the trial's E') of each
+    iteration is appended to it (0-dim tensors)."""
     h, w = img3_new.shape[0], img3_new.shape[1]
     dev = uv.device
     s = 0.5 ** level
@@ -140,6 +165,8 @@ def init_level(img3_new, uv, colors, neighbors, T0, ab0, idepth0, iR0, good0,
         iR_new = (1.0 - reg_weight) * d_new + reg_weight * _median_midpoint(iR[nbr])
         good_new = good & pt_ok
         sys2 = system(T_new, ab_new, d_new, iR_new, good_new)
+        if ladder is not None:
+            ladder.append((E, sys2[5]))
         accept = sys2[5] < E
         T = torch.where(accept, T_new, T)
         ab = torch.where(accept, ab_new, ab)

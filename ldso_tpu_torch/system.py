@@ -54,12 +54,18 @@ accelerator link:
   * The reference lets the tracking thread run on against the old
     reference while a keyframe is built, up to a staleness bound in scene
     units (``tracker.max_stale_delta``). Here, once a keyframe's trigger
-    is decided, one more dispatch (a frame, or a batch) goes out against
-    the old reference; the next waits for the new one (``_bound_ref_lag``). Both threads run Python under one
-    interpreter lock, so a build beside a free-running tracker took ~4x
-    its time alone (~400 against ~90 ms on an H100, ``PERF.md``) and
-    the reference went 5-11 frames stale; frames tracked 13 frames from
-    their reference failed, and keyframes were built from them. The
+    is decided, one more frame goes out against the old reference; the
+    next waits for the new one (``_bound_ref_lag``). Both threads run
+    Python under one interpreter lock, so a build beside a free-running
+    tracker took ~4x its time alone (~400 against ~90 ms on an H100,
+    ``PERF.md``) and the reference went 5-11 frames stale; frames tracked
+    13 frames from their reference failed, and keyframes were built from
+    them. A batch goes out past no decided trigger, and the triggers whose
+    readbacks have landed are decided before it goes (``_flush_batch``):
+    with one more batch allowed, frames were tracked up to 12 frames from
+    their reference, and the batched drive's ATE on the bench sequence (an
+    H100) went from 2.7% to 6.8% with the bootstrap's float32 rounding.
+    The
     staleness wait of ``_process_tracked`` stays beside this rule: with
     ``pipeline_depth`` a trigger is decided only when its frame's readback
     lands, up to that many frames after its dispatch, and the frames
@@ -546,6 +552,13 @@ class FullSystem:
                 if st.get("status") == "lost":
                     break
             return st
+        # the triggers whose readbacks have landed are decided first, and no
+        # batch goes out past a decided trigger: a batch sent against the
+        # old reference would track up to 3 batch_size frames from it
+        st = self._process_due(max(1, self.pipeline_depth // self.batch_size))
+        if st is not None and st.get("status") == "lost":
+            return st
+        self._dispatched_past_trigger = True
         self._bound_ref_lag()
         snap = self._snapshot()
         self._reexpress_carries(snap)
@@ -566,7 +579,8 @@ class FullSystem:
     def _bound_ref_lag(self):
         """Async modes: once a keyframe's trigger has been decided, one more
         dispatch goes out against the old reference; the next waits for the
-        new one (a departure, see the module docstring). The wait ends early
+        new one (a departure, see the module docstring; ``_flush_batch``
+        allows a batch no such dispatch). The wait ends early
         on a mapping exception and gives up after 1.2 s, as the staleness
         wait of ``_process_tracked`` does."""
         if not self._async:

@@ -38,7 +38,7 @@ def chip_smoke():
 
 def build_all() -> None:
     """Build the hand kernels that the package on the path has."""
-    for name in ("pallas_pyramid", "track_level", "trace", "ba"):
+    for name in ("pallas_pyramid", "track_level", "trace", "ba", "init_level"):
         try:
             mod = importlib.import_module(f"ldso_tpu_torch.kernels.{name}")
         except ImportError:
