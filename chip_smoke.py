@@ -110,8 +110,10 @@ Phases, one result line each (any failure raises and exits non-zero):
      accept ladders part at a tie held to G1's bounds, bit for bit against
      a second launch), the whole bootstrap on the kept pyramids against the
      plain one (``check_bootstrap``: the same frames snap and finish, G1's
-     bounds on ``results()``), and on the last bootstrap frame each level's
-     device ms, microseconds an iteration, plain ms and bound;
+     bounds on ``results()``), one level at 2048 points, a width the main
+     path never reaches (``wide_init_levels``, ``check_init_frame``), and
+     on the last bootstrap frame each level's device ms, microseconds an
+     iteration, plain ms and bound, with the launch's cluster shape;
   5. loop closure: the loop sequence of the JAX package's
      ``bench.py::bench_loop_closure`` (``preset("default")``, 320x240, 240
      frames, seed 5, out_and_back, uint8) driven twice, loop closure off
@@ -358,6 +360,9 @@ K4_FLOPS_REQ, K4_FLOPS_VALID, K4_FLOPS_FEJ, K4_FLOPS_ENERGY = 32, 1000, 45, 60
 INIT_T_ATOL, INIT_ID_RTOL, INIT_ID_ATOL, INIT_E_RTOL, INIT_POINTS_PARTED = (
     1e-4, 2e-3, 2e-4, 1e-3, 2)
 INIT_TIE_RTOL, INIT_MAX_PARTED = 1e-5, 1
+# phase 4e's check at a width the main path never reaches: one level (L2,
+# the third of the chain) of the first bootstrap frame at 2048 points
+WIDE_POINTS, WIDE_LEVEL = 2048, 2
 INIT_G1_BOTH, INIT_G1_IDEPTH, INIT_G1_ROT, INIT_G1_COS = 0.98, 0.01, 5e-3, 0.999
 # flops of csrc/init_level.cu, as one thread does them: a sample's ray,
 # projection and bounds test 36 in every evaluation; a sample with om > 0
@@ -2540,7 +2545,7 @@ def check_init_frame(name: str, levels, time_it: bool = False) -> list:
         again = kinit.init_level_cuda(*args, **kw, ladder=True)
         torch.cuda.synchronize()
         for field, a, b in zip(kinit.LevelOut._fields, out_k, again):
-            if not torch.equal(a, b):
+            if a is not None and not torch.equal(a, b):
                 raise RuntimeError(f"bootstrap kernel on {name}, level {kw['level']}: a second "
                                    f"launch differs in {field}")
         rec = dict(level=kw["level"], iters=kw["iters"], snapped=bool(kw["snapped"]),
@@ -2587,6 +2592,33 @@ def check_init_frame(name: str, levels, time_it: bool = False) -> list:
         raise RuntimeError(f"bootstrap kernel on {name}: {n_parted} levels before the snap held "
                            f"to G1 after a tie, more than {INIT_MAX_PARTED}")
     return records
+
+
+def wide_init_levels(boot, cfg, intr, dev, n: int = 2048) -> list:
+    """The ``init_level`` calls (args, keywords) of one
+    ``CoarseInitializer.track`` of the first tracked bootstrap frame of
+    ``boot`` (``BenchProbe``'s records) against its first frame, with
+    ``n`` points selected (``cfg``'s ``init_points`` replaced), chained
+    through the plain version: a width the main path never reaches."""
+    import dataclasses
+
+    from ldso_tpu_torch import init2f
+
+    init = init2f.CoarseInitializer(
+        cfg.replace(shapes=dataclasses.replace(cfg.shapes, init_points=n)), intr, dev)
+    init.set_first(boot[0]["pyr"], boot[0]["gsq"])
+    kept, level = [], init2f.init_level
+
+    def keep(*args, **kw):
+        kept.append((_clone(args), _clone(kw)))
+        return init2f.init_level_torch(*args, **kw)
+
+    init2f.init_level = keep
+    try:
+        init.track(boot[1]["pyr"])
+    finally:
+        init2f.init_level = level
+    return kept
 
 
 def check_bootstrap(boot, cfg, intr, dev) -> dict:
@@ -3938,6 +3970,18 @@ def main() -> int:
           f", median idepth gap {bb['g1']['idepth']:.3g} (bound {INIT_G1_IDEPTH}), rotation "
           f"{bb['g1']['rot']:.3g} rad ({INIT_G1_ROT}), translation cos {bb['g1']['cos']:.6f} "
           f"({INIT_G1_COS}) | {card}", flush=True)
+    wide = wide_init_levels(boot, preset("default"), ds.intrinsics(), dev, WIDE_POINTS)
+    n_wide = wide[WIDE_LEVEL][0][1].shape[0]
+    wr = check_init_frame(f"{n_wide} points, bootstrap frame 1",
+                          wide[WIDE_LEVEL:WIDE_LEVEL + 1])[0]
+    print(f"kernel init_level vs plain [{n_wide} points, bootstrap frame 1, L{wr['level']} "
+          f"{wr['w']}x{wr['h']} {wr['iters']} it, a cluster of "
+          f"{init_kernel.launch_config(n_wide)[0]} CTAs]: max|dT| {wr['e_T']:.3g}, idepth / iR "
+          f"error / bound {wr['e_idepth']:.3g} / {wr['e_iR']:.3g} ({wr['n_idepth']} / "
+          f"{wr['n_iR']} points beyond), good parted {wr['good_parted']}, energy rel "
+          f"{wr['e_E']:.3g}, ladders "
+          + ("equal" if wr["parted_at"] is None else f"part at iteration {wr['parted_at']}")
+          + f"; bitwise equal in a second launch | {card}", flush=True)
     timed = init_recs[-1]
     init_ms = sum(r["ms"] for r in timed)
     init_plain_ms = sum(r["plain_ms"] for r in timed)
@@ -3947,8 +3991,10 @@ def main() -> int:
     init_err = max(r["max_abs_err"] for rs in init_recs for r in rs)
     init_ties = sum(1 for rs in init_recs for r in rs if r["g1"] is not None)
     init_parted = sum(1 for rs in init_recs for r in rs if r["parted_at"] is not None)
-    print(f"kernel init_level timing [bootstrap frame {len(boot) - 1}, one launch a level: device "
-          f"ms (queued behind a spin kernel) / us an iteration / plain ms (host clock, "
+    init_cluster, init_threads = init_kernel.launch_config(timed[0]["points"])
+    print(f"kernel init_level timing [bootstrap frame {len(boot) - 1}, one launch a level, a "
+          f"cluster of {init_cluster} CTAs x {init_threads} threads: "
+          f"device ms (queued behind a spin kernel) / us an iteration / plain ms (host clock, "
           f"synchronized) / bound ms]: " + "; ".join(
               f"L{r['level']} {r['ms']:.4f} / {r['us_iter']:.2f} / {r['plain_ms']:.2f} / "
               f"{r['bound_ms']:.6f} by {r['bound_by']} ({r['bytes']} B, {r['flops']} flops)"
@@ -4216,7 +4262,11 @@ def main() -> int:
         "name": "init_level", "route": "cuda", "source": "ldso_tpu_torch/csrc/init_level.cu",
         "replaces": "ldso_tpu/init2f.py:52",
         "launches": init_main + init_loop + init_async + init_cli + init_resume,
-        "launches_per_bootstrap_frame": LEVELS, "max_abs_err": init_err, "ties": init_ties,
+        "launches_per_bootstrap_frame": LEVELS, "cluster": init_cluster,
+        "threads_per_cta": init_threads,
+        "wide_check": {"points": n_wide, "level": wr["level"], "max_abs_err": wr["max_abs_err"],
+                       "ladders_parted_at": wr["parted_at"]},
+        "max_abs_err": init_err, "ties": init_ties,
         "ladders_parted": init_parted,
         "ms": init_ms, "ms_is": f"device, the {LEVELS} launches of bootstrap frame "
         f"{len(boot) - 1} (one a level)", "plain_ms": init_plain_ms, "bound_ms": init_bound_ms,

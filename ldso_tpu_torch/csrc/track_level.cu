@@ -49,8 +49,9 @@
 //     warps' partials, then sums them in warp order into the CTA's partial;
 //   * warp 0 of every CTA pushes its partial into each peer's shared
 //     memory (st.async into distributed shared memory, each store counted
-//     on the peer's mbarrier), waits on its own mbarrier for the peers'
-//     partials, sums the C partials in rank order and takes the step
+//     on the peer's mbarrier; the helpers and the reduce-scatter are
+//     csrc/cluster.cuh's, shared with init_level.cu), waits on its own
+//     mbarrier for the peers' partials, sums the C partials in rank order and takes the step
 //     itself: the CTAs of a lane compute the same bits, so no state is
 //     broadcast and no cluster-wide barrier runs in the loop (the partials
 //     are double-buffered, so a peer can send the next evaluation's while
@@ -82,6 +83,8 @@
 #include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "cluster.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -285,71 +288,13 @@ __device__ __forceinline__ void point_sums(const Shared& s, const Level& L, cons
   }
 }
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// The address of the same shared-memory location in CTA `rank` of the cluster.
-__device__ __forceinline__ unsigned map_rank(unsigned addr, unsigned rank) {
-  unsigned out;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(out) : "r"(addr), "r"(rank));
-  return out;
-}
-
-// A 4-byte store into a peer's shared memory that completes 4 bytes of the
-// transaction count of the peer's mbarrier at `bar`.
-__device__ __forceinline__ void st_async(unsigned addr, float v, unsigned bar) {
-  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];"
-               :: "r"(addr), "r"(__float_as_uint(v)), "r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_init(unsigned bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" :: "r"(bar) : "memory");
-}
-
-// This CTA's own arrival on its mbarrier, expecting `bytes` from the peers.
-__device__ __forceinline__ void mbar_expect(unsigned bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred done;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 done, [%0], %1;\n"
-      "@!done bra WAIT;\n"
-      "}\n" :: "r"(bar), "r"(parity) : "memory");
-}
-
-// One halving step of the warp's reduce-scatter: of the first 2 * HALF
-// values, a thread whose lane has bit OFF set keeps the upper half, the
-// other the lower, each summed with its partner's copy.
-template <int HALF, int OFF>
-__device__ __forceinline__ void scatter_step(float a[kNS], int lane) {
-  const bool up = (lane & OFF) != 0;
-#pragma unroll
-  for (int i = 0; i < HALF; ++i) {
-    const float send = up ? a[i] : a[i + HALF];
-    const float keep = up ? a[i + HALF] : a[i];
-    a[i] = keep + __shfl_xor_sync(kFull, send, OFF);
-  }
-}
-
-// The warp's sums of 48 values: afterwards a[0..2] of lane l are the sums
-// of values base(l) + 0..2, base(l) = 24 b4 + 12 b3 + 6 b2 + 3 b1 from the
-// lane's bits (lanes l and l ^ 1 hold the same sums).
-__device__ __forceinline__ int warp_reduce_scatter(float a[kNS], int lane) {
-  scatter_step<24, 16>(a, lane);
-  scatter_step<12, 8>(a, lane);
-  scatter_step<6, 4>(a, lane);
-  scatter_step<3, 2>(a, lane);
-#pragma unroll
-  for (int i = 0; i < 3; ++i) a[i] += __shfl_xor_sync(kFull, a[i], 1);
-  return 24 * ((lane >> 4) & 1) + 12 * ((lane >> 3) & 1) + 6 * ((lane >> 2) & 1)
-         + 3 * ((lane >> 1) & 1);
-}
+using dsm::map_rank;
+using dsm::mbar_expect;
+using dsm::mbar_init;
+using dsm::mbar_wait;
+using dsm::smem_addr;
+using dsm::st_async;
+using dsm::warp_reduce_scatter;
 
 // A lane's system at state index si into sy[si], as warp 0 of every CTA of
 // the cluster sees it. Every thread takes part.

@@ -70,9 +70,10 @@ def launch_config(lanes: int) -> tuple:
     return COARSE_LAUNCH if lanes > 1 else FINE_LAUNCH
 
 
-@functools.lru_cache(maxsize=2)
-def _lib(phases: bool) -> ctypes.CDLL:
-    lib = cuda_build.load(SOURCE, PHASES if phases else ())
+def bind(src: str, phases: bool = False) -> ctypes.CDLL:
+    """The library of the source at ``src`` (this package's, or another
+    checkout's of the same C entry), built if need be, its entry typed."""
+    lib = cuda_build.load(src, PHASES if phases else ())
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     # level_ptrs, level_ints, cutoffs, n_levels, intr, T0, T0_stride, ab0,
     # ab0_stride, pick_rmse, k_in, lanes, lanes_cap, cluster, threads,
@@ -82,6 +83,11 @@ def _lib(phases: bool) -> ctypes.CDLL:
                                       f, f, f, f, f, p, p, p, p, p, p, p, p, p, p, p]
     lib.ldso_track_levels.restype = i
     return lib
+
+
+@functools.lru_cache(maxsize=2)
+def _lib(phases: bool) -> ctypes.CDLL:
+    return bind(SOURCE, phases)
 
 
 class Level(NamedTuple):

@@ -14,7 +14,7 @@ drive itself has). It prints one JSON line a drive: frames to initialize,
 the bootstrap's seconds (first ``add_frame`` to initialized), its seconds a
 frame (the first frame's point selection and neighbour graph first), and
 the ms of each level summed over the tracked bootstrap frames (``L4`` ..
-``L0``). The first frame
+``L0``), and the first frame's parts (``_drive``). The first frame
 a process tracks pays the first use of the kernel's library and of torch's
 ops, as a drive's first bootstrap does.
 
@@ -42,25 +42,84 @@ import torch_pairs
 BOOT_FRAMES = 12        # frames rendered a sequence: the bench sequence initializes on its 7th
 
 
+def _timed(fn, sync, into: list):
+    """``fn`` with each call's host-clock ms (between two synchronizations)
+    appended to ``into``."""
+    def timed(*args, **kw):
+        sync()
+        t = time.perf_counter()
+        out = fn(*args, **kw)
+        sync()
+        into.append(1e3 * (time.perf_counter() - t))
+        return out
+    return timed
+
+
+class _TimedTree:
+    """scipy's cKDTree, its build and each query timed into ``into``."""
+
+    def __init__(self, tree_cls, into: list):
+        self.tree_cls, self.into = tree_cls, into
+
+    def __call__(self, pts):
+        t = time.perf_counter()
+        tree = self.tree_cls(pts)
+        self.into.append(1e3 * (time.perf_counter() - t))
+        into = self.into
+
+        class Tree:
+            def query(self, *args, **kw):
+                t = time.perf_counter()
+                out = tree.query(*args, **kw)
+                into.append(1e3 * (time.perf_counter() - t))
+                return out
+        return Tree()
+
+
 def _drive(cfg, ds, frames, dev, sync) -> dict:
     """One bootstrap of the package on the path: a FullSystem fed until it
-    initializes, ``sync()`` ending each frame and around each level."""
-    from ldso_tpu_torch import init2f
+    initializes, ``sync()`` ending each frame and around each level. The
+    first frame is split into its parts: ``set_first``'s point selection
+    (``select.select_pixels``), the colours of each level (``bilinear``),
+    the neighbour graph (scipy's ``cKDTree``, build and query) and the rest
+    of ``set_first``; the first ``init_level`` call of the process (the
+    first K6 launch, the library's load included) is kept apart."""
+    import scipy.spatial
+
+    from ldso_tpu_torch import init2f, select
     from ldso_tpu_torch.system import FullSystem
 
     levels, plain = {}, init2f.init_level
+    first_call = []
 
     def timed(*args, **kw):
         sync()
         t = time.perf_counter()
         out = plain(*args, **kw)
         sync()
+        ms = 1e3 * (time.perf_counter() - t)
+        if not first_call:
+            first_call.append(ms)
         key = f"L{kw['level']}"
-        levels[key] = levels.get(key, 0.0) + 1e3 * (time.perf_counter() - t)
+        levels[key] = levels.get(key, 0.0) + ms
         return out
+
+    parts = dict(select=[], colours=[], graph=[], set_first=[])
+    orig = (init2f.CoarseInitializer.set_first, select.select_pixels, init2f.bilinear,
+            scipy.spatial.cKDTree)
+
+    def set_first(init, pyr, gsq):
+        select.select_pixels = _timed(orig[1], sync, parts["select"])
+        init2f.bilinear = _timed(orig[2], sync, parts["colours"])
+        scipy.spatial.cKDTree = _TimedTree(orig[3], parts["graph"])
+        try:
+            return _timed(orig[0], sync, parts["set_first"])(init, pyr, gsq)
+        finally:
+            select.select_pixels, init2f.bilinear, scipy.spatial.cKDTree = orig[1:]
 
     system = FullSystem(cfg, ds.intrinsics(), ds.w, ds.h, device=dev)
     init2f.init_level = timed
+    init2f.CoarseInitializer.set_first = set_first
     t_frames, status = [], None
     try:
         for img, ts, expo in frames:
@@ -72,11 +131,18 @@ def _drive(cfg, ds, frames, dev, sync) -> dict:
                 break
     finally:
         init2f.init_level = plain
+        init2f.CoarseInitializer.set_first = orig[0]
         system.shutdown()
     if status != "initialized":
         raise SystemExit(f"no initialization in {len(frames)} frames")
+    split = dict(select_ms=sum(parts["select"]), colours_ms=parts["colours"],
+                 graph_ms=sum(parts["graph"]), set_first_ms=sum(parts["set_first"]),
+                 first_k6_ms=first_call[0] if first_call else None)
+    split["set_first_rest_ms"] = (split["set_first_ms"] - split["select_ms"]
+                                  - sum(split["colours_ms"]) - split["graph_ms"])
+    split["frame_rest_ms"] = 1e3 * t_frames[0] - split["set_first_ms"]
     return dict(n_init=len(t_frames), boot_s=sum(t_frames), frames_s=t_frames,
-                levels_ms=levels)
+                levels_ms=levels, first_frame=split)
 
 
 def drive(root: str) -> dict:
@@ -127,6 +193,18 @@ def main() -> int:
                   f"median {statistics.median(per):.4f}, min {min(per):.4f}, max {max(per):.4f}; "
                   f"ms a tracked frame by level (median over drives) "
                   + ", ".join(f"{k} {v:.2f}" for k, v in sorted(lv.items())), flush=True)
+            for r in rs:
+                ff = r[seq].get("first_frame")
+                if ff is None:
+                    continue
+                print(f"{name}, {seq}, the first frame's parts (host ms, each ending in a "
+                      f"synchronize): select_pixels {ff['select_ms']:.2f}, the colours by level "
+                      + " / ".join(f"{x:.2f}" for x in ff["colours_ms"])
+                      + f", the cKDTree graph {ff['graph_ms']:.2f}, the rest of set_first "
+                      f"{ff['set_first_rest_ms']:.2f} (set_first {ff['set_first_ms']:.2f}), the "
+                      f"rest of the frame {ff['frame_rest_ms']:.2f}; the first K6 launch (the "
+                      f"next frame's first level, the library's load included) "
+                      f"{ff['first_k6_ms']:.2f}", flush=True)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True).stdout.strip()

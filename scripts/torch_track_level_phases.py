@@ -5,7 +5,7 @@ a CUDA card; optionally at other launch shapes, and beside an older
 version of the kernel.
 
     python3 scripts/torch_track_level_phases.py [--frames 20,60,100] [--fine 1x256,2x256]
-        [--coarse CxT,...] [--old PATH] [--reps N] [--json PATH]
+        [--coarse CxT,...] [--old PATH] [--same PATH] [--reps N] [--json PATH]
 
 The sync drive at ``preset("default")`` runs bench frames 0..max(frames)
 and keeps each frame's ``track_frame`` arguments
@@ -34,6 +34,13 @@ before the stream; its stamps under the same macro). It is timed in turns with
 the current kernel (old, new, new, old) at each level. ``ptxas -v`` of
 each source is printed. ``--json PATH`` also writes everything there as
 one JSON object. The last line is the card's name and power limit.
+
+``--same PATH`` names another build of the current C entry
+(``ldso_track_levels``), for example an earlier commit's
+``csrc/track_level.cu``: on each frame both builds run the frame's two
+launches (``chip_smoke.fused_levels``) on the same inputs, every entry the
+launches write (``chip_smoke.written_levels``) is compared bit for bit, and
+the two are timed in turns.
 """
 
 from __future__ import annotations
@@ -90,6 +97,43 @@ def _bind_old(path: str, phases: bool):
 def _shapes(text: str) -> list:
     """'1x256,2x256' -> [(1, 256), (2, 256)]."""
     return [tuple(int(x) for x in s.split("x")) for s in text.split(",") if s]
+
+
+@contextlib.contextmanager
+def _library(lib):
+    """Within the block the wrapper launches ``lib`` (its plain build)."""
+    from ldso_tpu_torch.kernels import track_level as ktl
+
+    orig = ktl._lib
+    ktl._lib = lambda phases: lib if not phases else orig(phases)
+    try:
+        yield
+    finally:
+        ktl._lib = orig
+
+
+def same_build_report(cs, ktl, args, same, dev_ms) -> dict:
+    """The frame's two launches of this build and of ``same``: the entries
+    the launches wrote that differ (field, level), and both device ms."""
+    import torch
+
+    from ldso_tpu_torch import tracker
+
+    plan = tracker.level_plan(args[0], args[1], args[5].tracker)
+    out_a = cs.fused_levels(args)
+    with _library(same):
+        out_b = cs.fused_levels(args)
+    torch.cuda.synchronize()
+    differ = [(field, level) for (field, level, a), (_, _, b) in
+              zip(cs.written_levels(out_a, plan), cs.written_levels(out_b, plan))
+              if not torch.equal(a, b)]
+
+    def other():
+        with _library(same):
+            return dev_ms(lambda: cs.fused_levels(args))
+
+    ms = _in_turns({"this": lambda: dev_ms(lambda: cs.fused_levels(args)), "same": other})
+    return dict(differ=differ, ms=ms)
 
 
 @contextlib.contextmanager
@@ -180,6 +224,7 @@ def main() -> int:
     ap.add_argument("--coarse", default="")
     ap.add_argument("--fine", default="")
     ap.add_argument("--old", default=None)
+    ap.add_argument("--same", default=None)
     ap.add_argument("--reps", type=int, default=7)
     ap.add_argument("--json", default=None)
     a = ap.parse_args()
@@ -200,11 +245,14 @@ def main() -> int:
     with concurrent.futures.ThreadPoolExecutor(max_workers=6) as pool:
         jobs = [pool.submit(ktl.build), pool.submit(ktl.build, True),
                 pool.submit(cuda_build.ptxas_report, ktl.SOURCE)]
+        same_job = pool.submit(cuda_build.build, a.same) if a.same else None
         if a.old:
             jobs += [pool.submit(cuda_build.build, a.old),
                      pool.submit(cuda_build.build, a.old, ktl.PHASES),
                      pool.submit(cuda_build.ptxas_report, a.old)]
         done = [j.result() for j in jobs]
+        if same_job is not None:
+            same_job.result()
     report = {"card": card, "frames": frames, "ptxas": {"new": done[2]}}
     print(f"ptxas (new): {done[2].strip()}", flush=True)
     old = old_ph = None
@@ -249,6 +297,13 @@ def main() -> int:
             rep["frame_old_ms"] = sum(r["old"]["ms"] for r in rep["levels"])
             print(f"frame {f}, the old kernel's five launches: {rep['frame_old_ms']:.4f} ms "
                   f"device (sum of the levels) | {card}", flush=True)
+        if a.same:
+            rep["same"] = same_build_report(cs, ktl, args, ktl.bind(a.same), dev_ms)
+            print(f"frame {f}, the two launches of this build and of {a.same}: "
+                  + ("bit for bit" if not rep["same"]["differ"] else
+                     f"entries differ in {rep['same']['differ']}")
+                  + f"; device ms this {rep['same']['ms']['this']:.4f}, the other "
+                  f"{rep['same']['ms']['same']:.4f} (in turns) | {card}", flush=True)
         n_k, ms_k = cs._device_events(lambda: tracker.track_frame(*args))
         rep["track_frame_kernels"], rep["track_frame_device_ms"] = n_k, ms_k
         print(f"frame {f}, one track_frame call: {n_k} device kernels / copies, {ms_k:.3f} ms "

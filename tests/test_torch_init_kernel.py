@@ -1,14 +1,17 @@
 """The bootstrap's Gauss-Newton loop at one pyramid level (K6): the
 dispatch of ``init2f.init_level`` (CPU -> the plain version
 ``init_level_torch``, bit for bit and without a launch), the wrapper's
-refusals (before any build), the plain version against the JAX package's
-``init_level`` at full width (1024 points, 10 neighbours, the 640x480 bench
-frames), chip_smoke's K6 yardsticks on the CPU (the plain chain, the ladder
-rule, G1's comparison, the bound, the bootstrap's capture and the whole
+launch shape (``launch_config``: the source's cluster, what its shared
+memory holds, MAX_POINTS) and refusals (before any build), the plain version
+against the JAX package's ``init_level`` at full width (1024 points, 10
+neighbours, the 640x480 bench frames) and at 2048 points, chip_smoke's K6
+yardsticks on the CPU (the plain chain, the ladder rule, G1's comparison,
+the bound, the bootstrap's capture, the wide check's levels and the whole
 bootstrap's check), and, on a card, the CUDA kernel
 (``kernels/init_level.py``) against the plain version at the ``tiny`` and
-``default`` shapes before and after the snap, a second launch bit for bit
-and one launch a call.
+``default`` shapes and at 1024 and 2048 points, before and after the snap,
+one level at MAX_POINTS / 2 and at MAX_POINTS, the same bits in a second
+launch, and one launch a call.
 
 The JAX package is imported inside the test that uses it, so that the
 card's machine, which has no JAX, runs the kernel's tests:
@@ -16,7 +19,9 @@ card's machine, which has no JAX, runs the kernel's tests:
 """
 
 import contextlib
+import dataclasses
 import os
+import re
 import subprocess
 import sys
 
@@ -59,12 +64,15 @@ def _pyramid(img, levels, dev):
     return pyr
 
 
-def _levels(bench, name: str, snapped: bool, dev):
+def _levels(bench, name: str, snapped: bool, dev, points: int = 0):
     """The init_level calls (args, keywords) of one CoarseInitializer.track
-    of bench frame 4 against frame 0 at ``preset(name)`` on ``dev``, and the
-    initializer; with ``snapped``, as after the snap."""
+    of bench frame 4 against frame 0 at ``preset(name)`` on ``dev`` (with
+    ``points`` selected, if given), and the initializer; with ``snapped``,
+    as after the snap."""
     frames, intr = bench
     cfg = preset(name)
+    if points:
+        cfg = cfg.replace(shapes=dataclasses.replace(cfg.shapes, init_points=points))
     levels = cfg.shapes.pyr_levels
     pyr0 = _pyramid(frames[0], levels, dev)
     init = init2f.CoarseInitializer(cfg, intr, dev)
@@ -88,6 +96,13 @@ def _levels(bench, name: str, snapped: bool, dev):
 @pytest.fixture(scope="module")
 def default_levels(bench):
     return {snapped: _levels(bench, "default", snapped, torch.device("cpu"))[0]
+            for snapped in (False, True)}
+
+
+@pytest.fixture(scope="module")
+def wide_levels(bench):
+    """The default preset's levels with 2048 points selected."""
+    return {snapped: _levels(bench, "default", snapped, torch.device("cpu"), 2048)[0]
             for snapped in (False, True)}
 
 
@@ -163,6 +178,39 @@ def test_wrapper_imports_without_nvcc():
     assert out.returncode == 0, out.stdout + out.stderr
 
 
+def _source_int(name: str) -> int:
+    """A ``constexpr int`` of csrc/init_level.cu whose value is a literal."""
+    return int(re.search(rf"constexpr int {name} = (\d+);", open(kinit.SOURCE).read()).group(1))
+
+
+def test_launch_config_picks_a_cluster_that_holds_the_points():
+    # the source's limits, read off it: the most points and neighbours, the
+    # threads and the cluster of a launch
+    text = open(kinit.SOURCE).read()
+    assert kinit.MAX_POINTS == _source_int("kMaxN") >= 4096
+    assert kinit.MAX_NEIGHBORS == _source_int("kMaxK")
+    assert kinit.THREADS == _source_int("kThreads")
+    assert kinit.CLUSTER == _source_int("kCluster")
+    assert 2 <= kinit.CLUSTER <= 8          # a portable cluster
+    cta = kinit.THREADS // kinit.CLUSTER
+    for n in (1, 255, 256, 512, 513, 1024, 2048, 4096, 5120, 5121, 8192, kinit.MAX_POINTS):
+        assert kinit.launch_config(n) == (kinit.CLUSTER, cta)
+    # a CTA's shared memory: kSlotBytes a slot (two buffers of kStateFloats
+    # floats, 16 floats of rays, the median, 2 flag bytes), ceil(N / 512) x
+    # cta slots, beside the static Shared (under 8 KB), within kSmemMax;
+    # MAX_POINTS is the largest count that fits
+    assert "constexpr int kSlotBytes = (2 * kStateFloats + 16 + 1) * 4 + 2;" in text
+    slot = (2 * _source_int("kStateFloats") + 16 + 1) * 4 + 2
+
+    def smem(n):
+        return slot * -(-n // kinit.THREADS) * cta
+
+    assert smem(kinit.MAX_POINTS) + 8192 <= _source_int("kSmemMax") < smem(kinit.MAX_POINTS + 1)
+    # the main path's width (preset("default")'s 1024 points) runs on a
+    # cluster of at least two CTAs
+    assert kinit.launch_config(preset("default").shapes.init_points)[0] >= 2
+
+
 def test_argtypes_follow_the_c_entry():
     # the ctypes binding's argument types are the C entry point's, one by
     # one (a pointer, an int, a float), read off csrc/init_level.cu
@@ -193,6 +241,29 @@ def test_plain_matches_jax_at_full_width(default_levels, snapped):
     args, kw = _case(default_levels[snapped], 2, 8)
     assert args[1].shape[0] == 1024 and args[3].shape[1] == 10
     assert tuple(args[0].shape) == (120, 160, 3)
+    args_np = [np.array(a.numpy()) for a in args]
+    a = jinit.init_level(*map(jnp.asarray, args_np), **{k: kw[k] for k in
+                                                        ("level", "iters", "snapped")})
+    b = init2f.init_level_torch(*[torch.tensor(x) for x in args_np],
+                                **{k: kw[k] for k in ("level", "iters", "snapped")})
+    np.testing.assert_allclose(b.T.numpy(), np.asarray(a.T), atol=1e-4)
+    np.testing.assert_allclose(b.idepth.numpy(), np.asarray(a.idepth), rtol=2e-3, atol=2e-4)
+    np.testing.assert_allclose(b.iR.numpy(), np.asarray(a.iR), rtol=2e-3, atol=2e-4)
+    np.testing.assert_array_equal(b.good.numpy(), np.asarray(a.good))
+    np.testing.assert_allclose(float(b.energy), float(a.energy), rtol=1e-3)
+
+
+@pytest.mark.parametrize("snapped", [False, True])
+def test_plain_matches_jax_at_2048_points(wide_levels, snapped):
+    """test_plain_matches_jax_at_full_width's case and bounds at 2048
+    points (the default preset with init_points 2048): a width the kernel
+    takes since it runs on a cluster of CTAs."""
+    import jax.numpy as jnp
+
+    from ldso_tpu import init2f as jinit
+
+    args, kw = _case(wide_levels[snapped], 2, 8)
+    assert args[1].shape[0] == 2048 and args[3].shape[1] == 10
     args_np = [np.array(a.numpy()) for a in args]
     a = jinit.init_level(*map(jnp.asarray, args_np), **{k: kw[k] for k in
                                                         ("level", "iters", "snapped")})
@@ -302,6 +373,37 @@ def test_bench_probe_keeps_the_bootstrap_and_check_bootstrap_runs(bench):
     assert rec["g1"]["ok"] and rec["g1"]["idepth"] == 0.0
 
 
+def test_wide_init_levels_on_the_cpu(bench):
+    """chip_smoke.wide_init_levels at the tiny preset on the CPU: a tracked
+    bootstrap frame's levels at the asked width, chained through the plain
+    version (each level starts from the plain result of the one before),
+    and the bench bootstrap as scripts/torch_init_level_phases.py collects
+    it."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))), "scripts"))
+    import torch_init_level_phases as phases
+
+    cfg = preset("tiny")
+    ds = cs._sequence(cs.N_FRAMES, cs.LOOP_W, cs.LOOP_H, 3, "forward_arc")
+    frames = cs._render_frames(cs.N_FRAMES, cs.LOOP_W, cs.LOOP_H, 3, "forward_arc", 0, 14)
+    boot = phases.bootstrap_levels(cs, cfg, ds, frames, torch.device("cpu"))
+    assert len(boot) >= 2 and all(len(f) == cfg.shapes.pyr_levels for f in boot)
+    assert boot[0][0][0][1].shape[0] == cfg.shapes.init_points
+    # the records wide_init_levels reads: set_first's pyramid and gsq, then
+    # the first tracked frame's pyramid
+    pyr = [build_pyramid_torch(torch.as_tensor(f[0]), cfg.shapes.pyr_levels)[0]
+           for f in frames[:2]]
+    recs = [dict(pyr=pyr[0], gsq=[torch.sum(p[..., 1:3] ** 2, dim=-1) for p in pyr[0]]),
+            dict(pyr=pyr[1])]
+    n = 2 * cfg.shapes.init_points
+    wide = cs.wide_init_levels(recs, cfg, ds.intrinsics(), torch.device("cpu"), n)
+    assert [kw["level"] for _, kw in wide] == list(range(cfg.shapes.pyr_levels - 1, -1, -1))
+    assert all(args[1].shape[0] == n and args[3].shape == (n, cfg.shapes.init_neighbors)
+               for args, _ in wide)
+    first = init2f.init_level_torch(*wide[0][0], **wide[0][1])
+    assert torch.equal(wide[1][0][4], first.T) and torch.equal(wide[1][0][6], first.idepth)
+
+
 def test_init_launch_check():
     cs._check_init_launches("t", cs.LEVELS * 6, 6)
     for launched, tracked in ((cs.LEVELS * 6 - 1, 6), (0, 0)):
@@ -331,6 +433,37 @@ def test_cuda_kernel_matches_plain(bench, name, snapped):
     recs = cs.check_init_frame(f"bench frame 4, {name}, snapped {snapped}", levels)
     assert kinit.LAUNCHES == before + 2 * len(levels)
     assert [r["level"] for r in recs] == list(range(len(levels) - 1, -1, -1))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("points", [1024, 2048])
+@pytest.mark.parametrize("snapped", [False, True])
+def test_cuda_kernel_matches_plain_at_1024_and_2048_points(bench, points, snapped):
+    """Every level of one bootstrap frame at the default preset with
+    ``points`` selected: chip_smoke's check against the plain version, a
+    second launch bit for bit."""
+    dev = _cuda_or_skip()
+    levels, _ = _levels(bench, "default", snapped, dev, points)
+    assert levels[0][0][1].shape[0] == points
+    before = kinit.LAUNCHES
+    cs.check_init_frame(f"bench frame 4, {points} points", levels)
+    assert kinit.LAUNCHES == before + 2 * len(levels)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("points", [kinit.MAX_POINTS // 2, kinit.MAX_POINTS])
+def test_cuda_kernel_at_the_point_cap(bench, points):
+    """One level (L2, 160x120) of one bootstrap frame at the default preset
+    with ``points`` selected, up to MAX_POINTS, the most the cluster's
+    shared memory holds: the launch is taken (its shared memory granted),
+    chip_smoke's check against the plain version holds, and a second
+    launch gives the same bits."""
+    dev = _cuda_or_skip()
+    levels, _ = _levels(bench, "default", False, dev, points)
+    assert levels[0][0][1].shape[0] == points
+    before = kinit.LAUNCHES
+    rec = cs.check_init_frame(f"bench frame 4, {points} points", levels[2:3])[0]
+    assert kinit.LAUNCHES == before + 2 and rec["level"] == 2
 
 
 @pytest.mark.gpu
