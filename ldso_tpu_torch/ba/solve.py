@@ -23,6 +23,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
+from ldso_tpu_torch import telemetry
 from ldso_tpu_torch.ba.residuals import assemble
 from ldso_tpu_torch.config import LdsoConfig
 from ldso_tpu_torch.core.window import Window, state_delta
@@ -168,6 +169,7 @@ class BAStats(NamedTuple):
     energy_ladder: object = None      # the trial energy of each iteration (host floats)
 
 
+@telemetry.span("ba")
 def run_ba(win: Window, HM: np.ndarray, bM: np.ndarray, cfg: LdsoConfig,
            anchor_slot: int = 0) -> Tuple[Window, BAStats]:
     """Windowed-BA energy-gated LM loop (reference: FullSystem::optimize
@@ -194,21 +196,32 @@ def run_ba(win: Window, HM: np.ndarray, bM: np.ndarray, cfg: LdsoConfig,
                 + 0.5 * torch.dot(delta, HM_t @ delta)
                 + 0.5 * torch.sum(prior_d * da * da))
 
-    sys = assemble(win, huber_th=huber, outlier_sum=osum)
-    E0 = float(total_energy(sys.energy, win))
+    with telemetry.span("ba.assemble"):
+        sys = assemble(win, huber_th=huber, outlier_sum=osum)
+    E0_t = total_energy(sys.energy, win)
+    with telemetry.span("wait.ba_gate"):
+        E0 = float(E0_t)
     E = E0
     lam = np.float32(cfg.ba.lambda_initial)
     n_steps = 0
     ladder, trials = [], []
     for it in range(cfg.ba.max_iterations):
-        dx, dd = _solve_core(sys.H, sys.b, sys.H_xd, sys.H_dd, sys.b_d,
-                             HM_t, bM_t, state_delta(win), prior_d, s_vec, fixed,
-                             N_scale, float(lam), win.p_valid, prior_off=p_off)
-        w_try = apply_step(win, dx, cfg.scales.idepth * dd)
-        sys_try = assemble(w_try, huber_th=huber, outlier_sum=osum)
-        E_try = float(total_energy(sys_try.energy, w_try))
-        step = float(torch.amax(torch.abs(dx)))
+        with telemetry.span("ba.solve"):
+            dx, dd = _solve_core(sys.H, sys.b, sys.H_xd, sys.H_dd, sys.b_d,
+                                 HM_t, bM_t, state_delta(win), prior_d, s_vec, fixed,
+                                 N_scale, float(lam), win.p_valid, prior_off=p_off)
+        with telemetry.span("ba.apply"):
+            w_try = apply_step(win, dx, cfg.scales.idepth * dd)
+        with telemetry.span("ba.assemble"):
+            sys_try = assemble(w_try, huber_th=huber, outlier_sum=osum)
+        E_try_t = total_energy(sys_try.energy, w_try)
+        step_t = torch.amax(torch.abs(dx))
+        with telemetry.span("wait.ba_gate"):
+            E_try = float(E_try_t)
+            step = float(step_t)
         ok = bool(np.isfinite(E_try)) and E_try < E
+        telemetry.count("ba.trials")
+        telemetry.count("ba.accepted", int(ok))
         if ok:
             win, sys, E = w_try, sys_try, E_try
             lam = np.float32(max(lam * np.float32(0.25), np.float32(1e-7)))
@@ -239,20 +252,21 @@ def run_ba(win: Window, HM: np.ndarray, bM: np.ndarray, cfg: LdsoConfig,
     fold_worthy = (sys.H_dd > cfg.ba.min_idepth_hessian) & (rel_b > cfg.ba.min_rel_baseline)
     junk = no_res & ~fold_worthy
 
-    stats = BAStats(
-        iterations=n_steps, energy_initial=E0, energy_final=E,
-        num_residuals=int(sys.num_res), lam_final=float(lam),
-        energy_photo=float(sys.energy),
-        idepth_hessian=sys.H_dd.cpu().numpy(),
-        valid_pair=sys.valid_pair.cpu().numpy(),
-        poses=T_fin.cpu().numpy().astype(np.float64),
-        x=win.x.cpu().numpy(), x_zero=win.x_zero.cpu().numpy(),
-        exposure=win.exposure.cpu().numpy(),
-        p_valid=win.p_valid.cpu().numpy(), p_host=win.p_host.cpu().numpy(),
-        p_idepth=win.p_idepth.cpu().numpy(), res_mask=win.res_mask.cpu().numpy(),
-        p_uv=win.p_uv.cpu().numpy(), p_color=win.p_color[:, 4].cpu().numpy(),
-        c=win.c.cpu().numpy(), junk=junk.cpu().numpy(), lam_ladder=ladder,
-        energy_ladder=trials)
+    with telemetry.span("wait.ba_stats"):
+        stats = BAStats(
+            iterations=n_steps, energy_initial=E0, energy_final=E,
+            num_residuals=int(sys.num_res), lam_final=float(lam),
+            energy_photo=float(sys.energy),
+            idepth_hessian=sys.H_dd.cpu().numpy(),
+            valid_pair=sys.valid_pair.cpu().numpy(),
+            poses=T_fin.cpu().numpy().astype(np.float64),
+            x=win.x.cpu().numpy(), x_zero=win.x_zero.cpu().numpy(),
+            exposure=win.exposure.cpu().numpy(),
+            p_valid=win.p_valid.cpu().numpy(), p_host=win.p_host.cpu().numpy(),
+            p_idepth=win.p_idepth.cpu().numpy(), res_mask=win.res_mask.cpu().numpy(),
+            p_uv=win.p_uv.cpu().numpy(), p_color=win.p_color[:, 4].cpu().numpy(),
+            c=win.c.cpu().numpy(), junk=junk.cpu().numpy(), lam_ladder=ladder,
+            energy_ladder=trials)
     win = win._replace(p_valid=win.p_valid & ~junk,
                        res_mask=win.res_mask & ~junk[:, None])
     return win, stats

@@ -101,6 +101,21 @@ def _stop(system, ds) -> None:
 
 
 def cmd_run(args) -> int:
+    from ldso_tpu_torch import telemetry
+
+    # the metrics file carries each frame's span times: record while running
+    tracing = bool(args.metrics) and not telemetry.enabled()
+    if tracing:
+        telemetry.reset()
+        telemetry.enable()
+    try:
+        return _run(args)
+    finally:
+        if tracing:
+            telemetry.disable()
+
+
+def _run(args) -> int:
     from ldso_tpu_torch.eval.ate import ate_rmse, write_tum_trajectory
     from ldso_tpu_torch.io.datasets import open_dataset
 
@@ -170,7 +185,11 @@ def main(argv=None) -> int:
                    help="shorthand: end = start + frames")
     r.add_argument("--output", default="results.txt",
                    help="TUM-format trajectory output")
-    r.add_argument("--metrics", default="", help="JSONL per-frame metrics")
+    r.add_argument("--metrics", default="",
+                   help="JSONL per-frame metrics; turns the span recorder on "
+                        "(ldso_tpu_torch.telemetry), and each line gains 'ms' "
+                        "(the frame's milliseconds by span name) and 'counts' "
+                        "(its counters, e.g. ba.trials / ba.accepted)")
     r.add_argument("--loop-closing", type=int, default=1)
     r.add_argument("--async", dest="async_pipeline", type=int, default=0,
                    help="1 = track ∥ map ∥ loop pipeline (reference thread model)")

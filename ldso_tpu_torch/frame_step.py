@@ -20,7 +20,7 @@ from typing import NamedTuple
 
 import torch
 
-from ldso_tpu_torch import tracker
+from ldso_tpu_torch import telemetry, tracker
 from ldso_tpu_torch import trace as trace_mod
 from ldso_tpu_torch.core.bank import Bank
 from ldso_tpu_torch.kernels.pyramid import build_pyramid
@@ -53,17 +53,20 @@ class FusedStepOut(NamedTuple):
 def _track_core(img, ref, T_last, T_prelast, ab0, intr, new_exposure, cfg):
     """Shared tracking body. ``img`` [H, W] uint8 or f32 (widened by the
     pyramid build)."""
-    pyr, gsq = build_pyramid(img, cfg.shapes.pyr_levels)
+    with telemetry.span("pyramid"):
+        pyr, gsq = build_pyramid(img, cfg.shapes.pyr_levels)
     return _track_pyr(pyr, gsq, ref, T_last, T_prelast, ab0, intr, new_exposure, cfg)
 
 
 def _track_pyr(pyr, gsq, ref, T_last, T_prelast, ab0, intr, new_exposure, cfg):
     """Tracking body on a built pyramid."""
     # constant-velocity prediction from the previous two refToNew poses
-    vel = lie.se3_mul(T_last, lie.se3_inverse(T_prelast))
-    T_cv = lie.se3_mul(vel, T_last)
-    hyps = tracker.motion_hypotheses(T_cv, num=cfg.shapes.num_hypotheses)
-    tr = tracker.track_frame(pyr, ref, hyps, ab0, intr, cfg)
+    with telemetry.span("predict"):
+        vel = lie.se3_mul(T_last, lie.se3_inverse(T_prelast))
+        T_cv = lie.se3_mul(vel, T_last)
+        hyps = tracker.motion_hypotheses(T_cv, num=cfg.shapes.num_hypotheses)
+    with telemetry.span("track"):
+        tr = tracker.track_frame(pyr, ref, hyps, ab0, intr, cfg)
 
     # keyframe-decision score (weights premultiplied by nominal 640+480)
     tc = cfg.tracker
@@ -190,6 +193,7 @@ def _trace_core_torch(img3_new, bank, T_eval, x, exposure_all, T_new_cw, ab_abs,
     )
 
 
+@telemetry.span("fused_step")
 def fused_step(img, ref: tracker.TrackerRef, T_last, T_prelast, ab0,
                bank: Bank, T_eval, x, exposure_all, T_ref_cw,
                intr, new_exposure, cfg) -> FusedStepOut:
@@ -197,9 +201,10 @@ def fused_step(img, ref: tracker.TrackerRef, T_last, T_prelast, ab0,
     leaving the device; the host reads one diag vector per frame."""
     pyr, gsq, T, (a_abs, b_abs), diag = _track_core(
         img, ref, T_last, T_prelast, ab0, intr, new_exposure, cfg)
-    T_new_cw = lie.se3_mul(T, T_ref_cw)
-    new_bank = _trace_core(pyr[0], bank, T_eval, x, exposure_all, T_new_cw,
-                           torch.stack([a_abs, b_abs]), new_exposure, intr, cfg)
+    with telemetry.span("trace"):
+        T_new_cw = lie.se3_mul(T, T_ref_cw)
+        new_bank = _trace_core(pyr[0], bank, T_eval, x, exposure_all, T_new_cw,
+                               torch.stack([a_abs, b_abs]), new_exposure, intr, cfg)
     return FusedStepOut(pyr=tuple(pyr), gsq=tuple(gsq), T=T, bank=new_bank,
                         diag=diag)
 

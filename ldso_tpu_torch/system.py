@@ -96,7 +96,7 @@ from typing import List, NamedTuple, Optional
 import numpy as np
 import torch
 
-from ldso_tpu_torch import frame_step, lifecycle, select, tracker
+from ldso_tpu_torch import frame_step, lifecycle, select, telemetry, tracker
 from ldso_tpu_torch.ba import marginal, solve
 from ldso_tpu_torch.config import LdsoConfig
 from ldso_tpu_torch.core import bank as bank_mod
@@ -378,6 +378,10 @@ class FullSystem:
         self._raise_map_exc()
         fid = self.frame_count
         self.frame_count += 1
+        with telemetry.span("add_frame", frame=fid):
+            return self._add_frame(fid, img, timestamp, exposure)
+
+    def _add_frame(self, fid, img, timestamp, exposure) -> dict:
         ts = float(timestamp) if timestamp is not None else float(fid)
         # uint8 frames stay uint8 up to the pyramid build, which widens them
         img = np.ascontiguousarray(np.asarray(img)[: self.h, : self.w])
@@ -403,7 +407,8 @@ class FullSystem:
             self._resync_prediction(self._T_ref_cw_np)
             return dict(status="relocalized", frame_id=fid, anchor_kf=rel["kf_id"],
                         n_inliers=rel["n_inliers"])
-        return self._initializer_step(fid, ts, float(exposure), pyr)
+        with telemetry.span("bootstrap"):
+            return self._initializer_step(fid, ts, float(exposure), pyr)
 
     def export_trajectory(self):
         """(timestamps [N], T_cw [N,4,4]) for every tracked frame — frame
@@ -418,9 +423,19 @@ class FullSystem:
         return np.asarray(ts_out), np.asarray(poses)
 
     def write_metrics(self, path: str):
-        """One JSON line per tracked frame (``self.metrics``)."""
+        """One JSON line per tracked frame (``self.metrics``). Where
+        ``telemetry`` recorded the frame, the line also holds ``ms``, the
+        frame's milliseconds by span name (each name's spans summed), and
+        ``counts``, its counters."""
+        recorded = {f.id: f for f in telemetry.frames()[0]}
         with open(path, "w") as f:
             for m in self.metrics:
+                rec = recorded.get(m["frame"])
+                if rec is not None:
+                    m = dict(m, ms={k: round(v[1] * 1e-6, 4)
+                                    for k, v in telemetry.totals([rec]).items()})
+                    if rec.counts:
+                        m["counts"] = dict(rec.counts)
                 f.write(json.dumps(m) + "\n")
 
     # ------------------------------------------------------------------
@@ -601,11 +616,13 @@ class FullSystem:
         # swap reports its affine against the OLD ref, and the tracker,
         # which holds (a, b) weakly, would stay near that seed (the
         # reference's per-frame async path does carry it across)
-        ab0 = torch.as_tensor(
-            self.last_rel_ab if self._last_rel_ab_version == snap.ref_version
-            else np.zeros(2, dtype=np.float32), device=self.device)
+        with telemetry.span("wait.upload"):     # pageable copies end in a stream sync
+            ab0 = torch.as_tensor(
+                self.last_rel_ab if self._last_rel_ab_version == snap.ref_version
+                else np.zeros(2, dtype=np.float32), device=self.device)
+            img_dev = torch.from_numpy(img).to(self.device)
         out = frame_step.fused_step(
-            torch.from_numpy(img).to(self.device), snap.ref, self._T_last_rel,
+            img_dev, snap.ref, self._T_last_rel,
             self._T_prelast_rel, ab0, snap.bank, snap.win.T_eval, snap.win.x,
             snap.win.exposure, snap.T_ref_dev, self.intr_t, exposure, self.cfg)
         self._commit_traced_bank(out.bank, snap.bank_version)
@@ -646,7 +663,8 @@ class FullSystem:
 
     def _process_entry(self, entry: _Pending) -> dict:
         if entry.event is not None:
-            entry.event.synchronize()
+            with telemetry.span("wait.diag"):
+                entry.event.synchronize()
         diags = entry.diag_host.numpy().reshape(len(entry.meta), -1)
         st: dict = dict(status="pending")
         for i, (fid, ts, expo) in enumerate(entry.meta):
@@ -904,6 +922,11 @@ class FullSystem:
         fresh candidates enter the bank and the in-flight count is
         released BEFORE the marginalization bookkeeping, so that frames
         dispatched meanwhile already track against the new keyframe."""
+        with telemetry.span("kf_path", frame=fid):
+            self._build_keyframe(fid, ts, exposure, pyr, T_cw, aff_ab, status, frame_rec)
+
+    def _build_keyframe(self, fid, ts, exposure, pyr, T_cw, aff_ab, status,
+                        frame_rec: FrameRecord):
         cfg = self.cfg
         kf = self._new_kf(fid, ts, T_cw, pyr[0], exposure, aff_ab)
         frame_rec.ref_kf = kf.kf_id
@@ -912,11 +935,12 @@ class FullSystem:
         self.win = win_mod.connect_new_frame(self.win, kf.slot)
 
         mad_px = self._update_min_act_dist()
-        with self.state_lock:
-            bank = self.bank
-        self.win, act_drop, act_stats = lifecycle.kf_activate(
-            self.win, bank, self.intr_t, kf.slot, mad_px, cfg)
-        self._commit_bank_patch(bank_mod.drop_rows, act_drop)
+        with telemetry.span("activate"):
+            with self.state_lock:
+                bank = self.bank
+            self.win, act_drop, act_stats = lifecycle.kf_activate(
+                self.win, bank, self.intr_t, kf.slot, mad_px, cfg)
+            self._commit_bank_patch(bank_mod.drop_rows, act_drop)
         seed = self._dispatch_seed(pyr)
 
         active_rec = [(kid, s) for s, kid in enumerate(self.slot_kf) if kid is not None]
@@ -933,6 +957,7 @@ class FullSystem:
                 self._map_cv.notify_all()    # wakes a tracking thread that waits
         self._finish_kf(kf, stats, act_stats.cpu().numpy(), active_rec, status, pyr)
 
+    @telemetry.span("kf_finish")
     def _finish_kf(self, kf, stats: solve.BAStats, act, active_rec, status, pyr):
         """Host bookkeeping of a keyframe from its BA results: pose
         records, frame flagging, point and frame marginalization; then
@@ -1208,10 +1233,12 @@ class FullSystem:
         self._min_act_dist = mad = float(np.clip(mad, 0.0, 4.0))
         return 2.0 * mad
 
+    @telemetry.span("seed_select")
     def _dispatch_seed(self, pyr) -> dict:
         return _seed_program(pyr[0], pyr[1], pyr[2], self.cfg,
                              seed=int(self.cfg.seed + (self.frame_count & 3)))
 
+    @telemetry.span("seed_patch")
     def _seed_new_kf(self, slot: int, pyr, seed: Optional[dict] = None):
         """Candidate reseed for a keyframe: scatter the fresh candidates
         into free bank slots."""
@@ -1230,6 +1257,7 @@ class FullSystem:
     # Tracker reference
     # ------------------------------------------------------------------
 
+    @telemetry.span("tracker_ref")
     def _update_tracker_ref(self, kf: KeyframeRecord):
         """Rebuild the tracking reference from the keyframe's window state."""
         uv, idep, color, valid = _project_points_to_slot(self.win, kf.slot)

@@ -348,6 +348,18 @@ def test_cli_runs_tum_fixture_end_to_end(tum_dir, tmp_path, capsys, single_torch
     rows = [json.loads(line) for line in open(metrics)]
     assert [r["frame"] for r in rows] == list(range(45 - len(rows), 45)) and len(rows) >= 30
     assert all("rmse" in r and "status" not in r for r in rows)
+    # --metrics turns the span recorder on: each row has its frame's spans,
+    # a keyframe's row its keyframe path and BA's counters; off again after
+    from ldso_tpu_torch import telemetry
+
+    assert not telemetry.enabled()
+    assert all({"add_frame", "wait.upload", "fused_step", "pyramid", "predict", "track",
+                "trace"} <= set(r["ms"]) for r in rows)
+    assert all(r["ms"]["add_frame"] >= r["ms"]["fused_step"] > 0 for r in rows)
+    kf_rows = [r for r in rows if "kf_id" in r]
+    assert kf_rows and all({"kf_path", "activate", "seed_select", "ba", "ba.solve",
+                            "tracker_ref", "seed_patch", "kf_finish"} <= set(r["ms"])
+                           and r["counts"]["ba.trials"] >= 1 for r in kf_rows)
     assert os.path.isfile(os.path.join(viz, "map.ply"))
     with open(os.path.join(viz, "map.ply")) as f:
         n_vertex = int(next(line for line in f if line.startswith("element vertex")).split()[-1])
