@@ -11,9 +11,10 @@ Phases, one result line each (any failure raises and exits non-zero):
   2. build: compile every kernel of the main path from ``ldso_tpu_torch/csrc``
      (the pyramid, the tracker levels, the trace and activation kernels
      of ``trace.cu`` (built with ``-fmad=false``), the BA linearization of
-     ``ba.cu`` and the bootstrap's GN loop of ``init_level.cu``, each source
-     its own nvcc, started together, with the tracker's, the trace
-     source's, the BA source's and the bootstrap's ``ptxas -v`` reports
+     ``ba.cu``, the bootstrap's GN loop of ``init_level.cu`` and the motion
+     prediction of ``predict.cu`` (``-fmad=false``), each source its own
+     nvcc, started together, with the tracker's, the trace source's, the BA
+     source's, the bootstrap's and the prediction's ``ptxas -v`` reports
      beside them: registers, shared memory, spills of each kernel),
      and the tracker kernel again with ``-DTRACK_LEVEL_PHASES`` (its clock64
      phase stamps)
@@ -38,9 +39,9 @@ Phases, one result line each (any failure raises and exits non-zero):
      (corner-biased seeding on) over the 120-frame bench sequence (seed 3,
      corridor, forward_arc, 640x480, uint8), checked against the
      ground-truth trajectory (ATE <= 6% of extent) and for corner-seeded
-     activations; the tracker kernel launched 2 times per tracked frame
-     (the coarse levels of every hypothesis, then the winner's fine
-     levels), the trace kernel once per tracked frame and the activation
+     activations; the prediction kernel once and the tracker kernel 2
+     times per tracked frame (the coarse levels of every hypothesis, then
+     the winner's fine levels), the trace kernel once per tracked frame and the activation
      kernel once per keyframe built, the BA kernel once an evaluation
      (``count_ba``) and the bootstrap kernel once a level of each tracked
      bootstrap frame (``count_bootstrap``), as in every later drive; the
@@ -114,6 +115,12 @@ Phases, one result line each (any failure raises and exits non-zero):
      path never reaches (``wide_init_levels``, ``check_init_frame``), and
      on the last bootstrap frame each level's device ms, microseconds an
      iteration, plain ms and bound, with the launch's cluster shape;
+  4f. the motion prediction kernel (K7) on the T_last and T_prelast of
+     frames 20, 60 and 100: its hypotheses bit for bit the plain chain's
+     (``tracker.predict_hypotheses_torch`` on the card) and a second
+     launch's (``check_predict``), and on frame 60 the launch's device ms,
+     the whole call's host ms, the plain chain's host ms and device kernels,
+     and the bound;
   5. loop closure: the loop sequence of the JAX package's
      ``bench.py::bench_loop_closure`` (``preset("default")``, 320x240, 240
      frames, seed 5, out_and_back, uint8) driven twice, loop closure off
@@ -181,7 +188,7 @@ Phases, one result line each (any failure raises and exits non-zero):
      references. A rank that fails, or has not ended within
      ``DIST_TIMEOUT_S``, fails the phase.
 Then a JSON line of per-kernel results (pyramid, track_level, trace,
-activate, ba_assemble, init_level), the card line again, and as the
+activate, ba_assemble, init_level, predict), the card line again, and as the
 last line ``{"ok": true, "device": {...}}``. There is no CPU path; the CPU
 tests (tests/test_torch_distributed.py) run phase 8's rank program at
 ``preset("tiny")``.
@@ -248,13 +255,11 @@ TRACK_CAPTURE = (20, 60, 100)     # bench frames whose tracking inputs phase 4 k
 TRACK_PROFILE = tuple(range(40, 60))   # bench frames phase 4 traces with torch.profiler
 TRACK_MAX_EVENTS = 50             # device kernels one track_frame call may take (42-44 seen)
 TRACK_LAUNCHES = 2                # tracker kernel launches a tracked frame: coarse, then fine
-# a regression gate, not a target: device kernels and copies one fused_step
-# may take. 352-353 on the card since the trace kernel makes its own slot
-# tables (~440 before, 900 and more with the plain trace); of these the
-# tracker takes 42-44, the trace one launch, the prediction (one se3_log, 27
-# se3_exp) ~270, which stands between this and the 200 the port aims at
-# (ROADMAP)
-STEP_MAX_EVENTS = 372
+# device kernels and copies one fused_step may take, the port's aim (ROADMAP):
+# 352-353 on the card while the prediction (one se3_log, 27 se3_exp) took
+# ~270 eager torch launches; since it is one launch (K7), the tracker's 42-44,
+# the trace's one and the score, affine and diag's ~21 are most of the rest
+STEP_MAX_EVENTS = 200
 # flops of one point evaluation in csrc/track_level.cu's evaluate: every
 # point xh 4, X 18, z test 2, projection 3 + 4, bounds 4, bilinear sample
 # 33, residual and Huber 9 (77); a point with omega > 0 also J 31 and the
@@ -374,6 +379,13 @@ INIT_G1_BOTH, INIT_G1_IDEPTH, INIT_G1_ROT, INIT_G1_COS = 0.98, 0.01, 5e-3, 0.999
 # and T' 260, the rest 17) 840 an iteration
 INIT_FLOPS_SAMPLE, INIT_FLOPS_OK, INIT_FLOPS_POINT = 36, 215, 12
 INIT_FLOPS_UPDATE, INIT_FLOPS_STEP = 130, 840
+# flops of csrc/predict.cu (K7), as one thread does them (a product, sum,
+# division, square root or transcendental 1, a fused multiply-add 2): once,
+# the inverse 21, the two pose products 192 and the logarithm 231 (the
+# quaternion 51, so3_log 30, so3_left_jacobian 99, solve33 51); a
+# hypothesis, its tangent 6 and the exponential 167 (coefficients 17, K K 54,
+# R and V 72, V rho 18, the tangent's squares 6)
+PREDICT_FLOPS_ONCE, PREDICT_FLOPS_HYP = 444, 173
 
 
 def _card_line() -> str:
@@ -675,7 +687,7 @@ class BenchProbe:
     KERNELS = {"pyramid": ("pyramid_kernel",), "track_level": ("track_levels_kernel",),
                "trace": ("trace_bank_kernel",), "activate": ("activate_bank_kernel",),
                "ba_assemble": ("ba_kernel", "ba_linearize_kernel", "ba_reduce_kernel"),
-               "init_level": ("init_level_kernel",)}
+               "init_level": ("init_level_kernel",), "predict": ("predict_kernel",)}
 
     def __init__(self, capture, profile, act_after: int = ACT_AFTER, act_keep: int = ACT_KEEP):
         self.capture, self.profile = tuple(capture), tuple(profile)
@@ -903,12 +915,21 @@ def _hand_launches() -> int:
     from ldso_tpu_torch.kernels import ba, pallas_pyramid, track_level
     from ldso_tpu_torch.kernels import trace as trace_kernel
 
-    # a package without the bootstrap kernel (an earlier checkout), or one
-    # that has not imported it yet, has launched none
-    init_level = sys.modules.get("ldso_tpu_torch.kernels.init_level")
+    # a package without the bootstrap or the prediction kernel (an earlier
+    # checkout), or one that has not imported it yet, has launched none
+    later = [sys.modules.get(f"ldso_tpu_torch.kernels.{m}") for m in ("init_level", "predict")]
     return (pallas_pyramid.LAUNCHES + track_level.LAUNCHES + trace_kernel.LAUNCHES_TRACE
             + trace_kernel.LAUNCHES_ACTIVATE + ba.LAUNCHES
-            + (init_level.LAUNCHES if init_level is not None else 0))
+            + sum(m.LAUNCHES for m in later if m is not None))
+
+
+def _reset_launches() -> None:
+    """Zero every hand kernel's launch counter (a phase's count starts)."""
+    from ldso_tpu_torch.kernels import ba, init_level, pallas_pyramid, predict, track_level
+    from ldso_tpu_torch.kernels import trace as trace_kernel
+
+    for k in (pallas_pyramid, track_level, trace_kernel, ba, init_level, predict):
+        k.reset_launches()
 
 
 def _device_events(fn) -> tuple:
@@ -1315,12 +1336,81 @@ def _iters_text(rec: dict) -> str:
     return f"max {max(it)} of {rec['cap']}, {sum(it)} over {len(it)} lanes"
 
 
-def _check_track_launches(phase: str, launched: int, tracked: int) -> None:
-    """Two tracker launches for each tracked frame: the coarse levels of
-    every hypothesis, then the winner's fine levels."""
+def _check_track_launches(phase: str, launched: int, tracked: int, predicted: int) -> None:
+    """Two tracker launches for each tracked frame (the coarse levels of
+    every hypothesis, then the winner's fine levels) and one prediction
+    launch (K7: the hypotheses)."""
     if launched != TRACK_LAUNCHES * tracked:
         raise RuntimeError(f"{phase}: tracker kernel launched {launched} times for "
                            f"{tracked} tracked frames, expected {TRACK_LAUNCHES * tracked}")
+    if predicted != tracked:
+        raise RuntimeError(f"{phase}: prediction kernel launched {predicted} times for "
+                           f"{tracked} tracked frames")
+
+
+def predict_bound_ms(num: int) -> tuple:
+    """The least time the card could take for one prediction launch:
+    (ms, "bytes" or "operations", bytes, flops). Bytes: T_last whole, T_prelast's
+    rows 0-2, each hypothesis written once; flops: PREDICT_FLOPS_*."""
+    n_bytes = 64 + 48 + 64 * num
+    flops = PREDICT_FLOPS_ONCE + num * PREDICT_FLOPS_HYP
+    by_bytes, by_ops = 1e3 * n_bytes / HBM_BYTES_PER_S, 1e3 * flops / FP32_FLOPS_PER_S
+    return (max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations", n_bytes,
+            flops)
+
+
+def ulp_text(a, b) -> str:
+    """Where two float32 tensors of one shape part: the count of entries
+    whose bits differ, the largest gap in ulps and its index."""
+    import torch
+
+    ia, ib = a.contiguous().view(torch.int32).long(), b.contiguous().view(torch.int32).long()
+    # the bits as an ordered integer line (negative floats mirrored)
+    ia = torch.where(ia < 0, -(ia & 0x7FFFFFFF), ia)
+    ib = torch.where(ib < 0, -(ib & 0x7FFFFFFF), ib)
+    gap = (ia - ib).abs().flatten()
+    if not int((gap > 0).sum()):
+        return "bit for bit"
+    i = int(torch.argmax(gap))
+    idx = tuple(int(v) for v in torch.unravel_index(torch.tensor(i), a.shape))
+    return (f"{int((gap > 0).sum())} of {gap.numel()} entries part, at most {int(gap[i])} ulps "
+            f"at {idx} ({float(a.flatten()[i])!r} against {float(b.flatten()[i])!r})")
+
+
+def check_predict(name: str, step, time_it: bool = False) -> dict:
+    """K7 on one frame's prediction inputs (``fused_step``'s T_last and
+    T_prelast, kept by ``BenchProbe``): the kernel's hypotheses bit for bit
+    the plain chain's on the card (``tracker.predict_hypotheses_torch``) and
+    a second launch's. With ``time_it`` also the launch's device ms (queued
+    behind a spin kernel), the whole call's host ms, the plain chain's host
+    ms (its eager launches), and the bound."""
+    from ldso_tpu_torch import tracker
+    from ldso_tpu_torch.kernels import predict
+
+    T_last, T_prelast, cfg = step[2], step[3], step[-1]
+    num = cfg.shapes.num_hypotheses
+    n0 = predict.LAUNCHES
+    out_k = predict.predict_hypotheses_cuda(T_last, T_prelast, num)
+    out_k2 = predict.predict_hypotheses_cuda(T_last, T_prelast, num)
+    out_p = tracker.predict_hypotheses_torch(T_last, T_prelast, num)
+    if predict.LAUNCHES != n0 + 2:
+        raise RuntimeError(f"{name}: two prediction calls made {predict.LAUNCHES - n0} launches")
+    if not _bits_equal(out_k, out_k2):
+        raise RuntimeError(f"{name}: a second prediction launch parts: {ulp_text(out_k2, out_k)}")
+    if not _bits_equal(out_k, out_p):
+        raise RuntimeError(f"{name}: the prediction kernel parts from the plain chain: "
+                           f"{ulp_text(out_k, out_p)}")
+    rec = dict(num=num)
+    if time_it:
+        kernel = lambda: predict.predict_hypotheses_cuda(T_last, T_prelast, num)  # noqa: E731
+        rec["ms"] = _device_ms(kernel)
+        rec["host_ms"] = _host_ms(kernel)
+        rec["plain_host_ms"] = _host_ms(
+            lambda: tracker.predict_hypotheses_torch(T_last, T_prelast, num))
+        rec["plain_kernels"], rec["plain_ms"] = _device_events(
+            lambda: tracker.predict_hypotheses_torch(T_last, T_prelast, num))
+        rec["bound_ms"], rec["bound_by"], rec["bytes"], rec["flops"] = predict_bound_ms(num)
+    return rec
 
 
 def _check_trace_launches(phase: str, traced: int, activated: int, tracked: int,
@@ -3505,6 +3595,7 @@ def main() -> int:
     from ldso_tpu_torch.kernels import ba as ba_kernel
     from ldso_tpu_torch.kernels import cuda_build, pallas_pyramid, track_level
     from ldso_tpu_torch.kernels import init_level as init_kernel
+    from ldso_tpu_torch.kernels import predict as predict_kernel
     from ldso_tpu_torch.kernels import trace as trace_kernel
     from ldso_tpu_torch.kernels.pyramid import build_pyramid_torch
 
@@ -3551,9 +3642,12 @@ def main() -> int:
                   pool.submit(cuda_build.ptxas_report, ba_kernel.SOURCE, (), ba_kernel.NO_FMAD),
                   pool.submit(init_kernel.build),
                   pool.submit(cuda_build.ptxas_report, init_kernel.SOURCE),
+                  pool.submit(predict_kernel.build),
+                  pool.submit(cuda_build.ptxas_report, predict_kernel.SOURCE, (),
+                              predict_kernel.NO_FMAD),
                   pool.submit(native.available)]
         (lib, lib_track, lib_phases, lib_trace, ptxas, ptxas_trace, lib_ba, ptxas_ba, lib_init,
-         ptxas_init, has_native) = (b.result() for b in builds)
+         ptxas_init, lib_predict, ptxas_predict, has_native) = (b.result() for b in builds)
         reason = ""
         if not has_native:
             lines = (native.unavailable_reason() or "no reason given").strip().splitlines()
@@ -3564,7 +3658,8 @@ def main() -> int:
               f"kernel with -DTRACK_LEVEL_PHASES), {os.path.relpath(lib_trace, root)} "
               f"(-fmad=false; {ptxas_kernels(ptxas_trace)}), {os.path.relpath(lib_ba, root)} "
               f"(-fmad=false; {ptxas_kernels(ptxas_ba)}), {os.path.relpath(lib_init, root)} "
-              f"({ptxas_kernels(ptxas_init)}); native image loader "
+              f"({ptxas_kernels(ptxas_init)}), {os.path.relpath(lib_predict, root)} "
+              f"(-fmad=false; {ptxas_kernels(ptxas_predict)}); native image loader "
               f"{'built' if has_native else 'NOT built'}{reason}; frames will be decoded by "
               f"'{datasets.active_decoder()}'; {time.perf_counter() - t0:.2f} s", flush=True)
         (tum_root, tum_gt), (ds, frames), (lds, lframes) = (f.result() for f in futures)
@@ -3638,11 +3733,7 @@ def main() -> int:
 
     sync = torch.cuda.synchronize
     t_phase = time.perf_counter()
-    pallas_pyramid.reset_launches()
-    track_level.reset_launches()
-    trace_kernel.reset_launches()
-    ba_kernel.reset_launches()
-    init_kernel.reset_launches()
+    _reset_launches()
     probe = BenchProbe(TRACK_CAPTURE, TRACK_PROFILE)
     from ldso_tpu_torch import frame_step as fs_mod
     from ldso_tpu_torch import trace as tr_mod
@@ -3658,7 +3749,7 @@ def main() -> int:
                            f"{trace_tables_main[0]} times, activation_slot_tables "
                            f"{act_tables_main[0]} times")
     launches_main = pallas_pyramid.LAUNCHES
-    track_main = track_level.LAUNCHES
+    track_main, predict_main = track_level.LAUNCHES, predict_kernel.LAUNCHES
     trace_main, act_main = trace_kernel.LAUNCHES_TRACE, trace_kernel.LAUNCHES_ACTIVATE
     ba_main = ba_kernel.LAUNCHES
     init_main = init_kernel.LAUNCHES
@@ -3666,7 +3757,7 @@ def main() -> int:
     if launches_main != len(frames) or main["n_tracked"] == 0:
         raise RuntimeError(f"pyramid kernel launched {launches_main} times for "
                            f"{len(frames)} frames ({main['n_tracked']} tracked)")
-    _check_track_launches("phase 4", track_main, main["n_tracked"])
+    _check_track_launches("phase 4", track_main, main["n_tracked"], predict_main)
     _check_trace_launches("phase 4", trace_main, act_main, main["n_tracked"], kf_main[0])
     _check_ba_launches("phase 4", ba_main, ba_main_evals[0])
     _check_init_launches("phase 4", init_main, boot_main[0])
@@ -4005,13 +4096,23 @@ def main() -> int:
             f"{init_ties}; phase wall time {time.perf_counter() - t_phase:.1f} s | {card}",
           flush=True)
 
+    # ---- 4f. the prediction kernel (K7) on the main path's real inputs
+    t_phase = time.perf_counter()
+    pred_recs = {i: check_predict(f"bench frame {i}", probe.inputs[i]["step"],
+                                  time_it=(i == mid)) for i in TRACK_CAPTURE}
+    pr = pred_recs[mid]
+    print(f"kernel predict vs plain [bench frames {', '.join(map(str, TRACK_CAPTURE))}, the "
+          f"system's T_last and T_prelast, {pr['num']} hypotheses]: bit for bit the plain chain "
+          f"and a second launch on every frame; bench frame {mid}: device {pr['ms']:.4f} ms "
+          f"(queued behind a spin kernel), whole call {pr['host_ms']:.4f} ms host, plain "
+          f"chain {pr['plain_host_ms']:.4f} ms host and {pr['plain_kernels']} device kernels / "
+          f"copies ({pr['plain_ms']:.4f} ms device), bound {pr['bound_ms']:.7f} ms by "
+          f"{pr['bound_by']} ({pr['bytes']} B, {pr['flops']} flops); phase wall time "
+          f"{time.perf_counter() - t_phase:.1f} s | {card}", flush=True)
+
     # ---- 5. loop closure on the loop sequence
     t_phase = time.perf_counter()
-    pallas_pyramid.reset_launches()
-    track_level.reset_launches()
-    trace_kernel.reset_launches()
-    ba_kernel.reset_launches()
-    init_kernel.reset_launches()
+    _reset_launches()
     with count_keyframes() as kf_loop, count_ba() as ba_loop_evals, \
             count_bootstrap() as boot_loop:
         loop = drive_loop_pair(preset("default"), lds, lframes, dev, sync=sync)
@@ -4020,10 +4121,10 @@ def main() -> int:
     _check_ba_launches("phase 5", ba_loop, ba_loop_evals[0])
     _check_init_launches("phase 5", init_loop, boot_loop[0])
     launches_loop = pallas_pyramid.LAUNCHES
-    track_loop = track_level.LAUNCHES
+    track_loop, predict_loop = track_level.LAUNCHES, predict_kernel.LAUNCHES
     trace_loop, act_loop = trace_kernel.LAUNCHES_TRACE, trace_kernel.LAUNCHES_ACTIVATE
     _check_track_launches("phase 5", track_loop,
-                          loop["off"]["n_tracked"] + loop["on"]["n_tracked"])
+                          loop["off"]["n_tracked"] + loop["on"]["n_tracked"], predict_loop)
     _check_trace_launches("phase 5", trace_loop, act_loop,
                           loop["off"]["n_tracked"] + loop["on"]["n_tracked"], kf_loop[0])
     # two drives of one launch per frame, and the relocalization's pyramid
@@ -4058,11 +4159,7 @@ def main() -> int:
              (ds, frames), main["ate"]),
             ("(c) async + AsyncLoopClosing, loop sequence", dict(loop=True),
              (lds, lframes), on["ate"])):
-        pallas_pyramid.reset_launches()
-        track_level.reset_launches()
-        trace_kernel.reset_launches()
-        ba_kernel.reset_launches()
-        init_kernel.reset_launches()
+        _reset_launches()
         with count_keyframes() as kf_async, count_ba() as ba_async_evals, \
                 count_bootstrap() as boot_async:
             r = drive_async(preset("default"), *seq, dev, sync, ate_sync, **kw)
@@ -4072,9 +4169,11 @@ def main() -> int:
         _check_init_launches(name, r["init_launches"], boot_async[0])
         r["launches"] = pallas_pyramid.LAUNCHES
         r["track_launches"] = track_level.LAUNCHES
+        r["predict_launches"] = predict_kernel.LAUNCHES
         r["trace_launches"] = trace_kernel.LAUNCHES_TRACE
         r["act_launches"] = trace_kernel.LAUNCHES_ACTIVATE
-        _check_track_launches(name, r["track_launches"], r["n_tracked"])
+        _check_track_launches(name, r["track_launches"], r["n_tracked"],
+                              r["predict_launches"])
         _check_trace_launches(name, r["trace_launches"], r["act_launches"], r["n_tracked"],
                               kf_async[0])
         if r["launches"] != r["launches_expected"]:
@@ -4085,6 +4184,7 @@ def main() -> int:
         raise RuntimeError("the batched drive left no tail of fewer than a batch")
     launches_async = sum(r["launches"] for r in drives.values())
     track_async = sum(r["track_launches"] for r in drives.values())
+    predict_async = sum(r["predict_launches"] for r in drives.values())
     trace_async = sum(r["trace_launches"] for r in drives.values())
     act_async = sum(r["act_launches"] for r in drives.values())
     ba_async = sum(r["ba_launches"] for r in drives.values())
@@ -4110,11 +4210,7 @@ def main() -> int:
     t_phase = time.perf_counter()
     out_dir = os.path.join(tmp.name, "out")
     os.makedirs(out_dir)
-    pallas_pyramid.reset_launches()
-    track_level.reset_launches()
-    trace_kernel.reset_launches()
-    ba_kernel.reset_launches()
-    init_kernel.reset_launches()
+    _reset_launches()
     with count_keyframes() as kf_cli, count_ba() as ba_cli_evals, \
             count_bootstrap() as boot_cli:
         cli_run = drive_cli(tum_root, tum_gt, out_dir)
@@ -4123,19 +4219,15 @@ def main() -> int:
     _check_ba_launches("phase 7 (CLI)", ba_cli, ba_cli_evals[0])
     _check_init_launches("phase 7 (CLI)", init_cli, boot_cli[0])
     launches_cli = pallas_pyramid.LAUNCHES
-    track_cli = track_level.LAUNCHES
+    track_cli, predict_cli = track_level.LAUNCHES, predict_kernel.LAUNCHES
     trace_cli, act_cli = trace_kernel.LAUNCHES_TRACE, trace_kernel.LAUNCHES_ACTIVATE
     # a metrics line per tracked frame
-    _check_track_launches("phase 7 (CLI)", track_cli, cli_run["n_metrics"])
+    _check_track_launches("phase 7 (CLI)", track_cli, cli_run["n_metrics"], predict_cli)
     _check_trace_launches("phase 7 (CLI)", trace_cli, act_cli, cli_run["n_metrics"], kf_cli[0])
     if launches_cli != cli_run["n_fed"]:
         raise RuntimeError(f"pyramid kernel launched {launches_cli} times for "
                            f"{cli_run['n_fed']} frames fed by the CLI")
-    pallas_pyramid.reset_launches()
-    track_level.reset_launches()
-    trace_kernel.reset_launches()
-    ba_kernel.reset_launches()
-    init_kernel.reset_launches()
+    _reset_launches()
     with count_keyframes() as kf_resume, count_ba() as ba_resume_evals, \
             count_bootstrap() as boot_resume:
         resume = drive_resume(preset("default"), tum_root, out_dir, dev, sync)
@@ -4144,10 +4236,11 @@ def main() -> int:
     _check_ba_launches("phase 7 (resume)", ba_resume, ba_resume_evals[0])
     _check_init_launches("phase 7 (resume)", init_resume, boot_resume[0])
     launches_resume = pallas_pyramid.LAUNCHES
-    track_resume = track_level.LAUNCHES
+    track_resume, predict_resume = track_level.LAUNCHES, predict_kernel.LAUNCHES
     trace_resume = trace_kernel.LAUNCHES_TRACE
     act_resume = trace_kernel.LAUNCHES_ACTIVATE
-    _check_track_launches("phase 7 (resume)", track_resume, resume["n_tracked"])
+    _check_track_launches("phase 7 (resume)", track_resume, resume["n_tracked"],
+                          predict_resume)
     _check_trace_launches("phase 7 (resume)", trace_resume, act_resume, resume["n_tracked"],
                           kf_resume[0])
     if launches_resume != resume["launches_expected"]:
@@ -4275,7 +4368,16 @@ def main() -> int:
                                      "iterations": r["iters"], "plain_ms": r["plain_ms"],
                                      "bound_ms": r["bound_ms"]} for r in timed},
         "bootstrap_s": boot_s, "bootstrap_frames": main["n_init"],
-        "bootstrap_s_per_frame": main["t_boot"]}]}), flush=True)
+        "bootstrap_s_per_frame": main["t_boot"]}, {
+        "name": "predict", "route": "cuda", "source": "ldso_tpu_torch/csrc/predict.cu",
+        "replaces": "ldso_tpu/tracker.py:324",
+        "launches": predict_main + predict_loop + predict_async + predict_cli + predict_resume,
+        "launches_per_frame": 1, "max_abs_err": 0.0, "bitwise": True,
+        "ms": pr["ms"], "ms_is": f"device, one launch on bench frame {mid}",
+        "call_host_ms": pr["host_ms"], "plain_host_ms": pr["plain_host_ms"],
+        "plain_kernels": pr["plain_kernels"], "plain_ms": pr["plain_ms"],
+        "bound_ms": pr["bound_ms"], "bound_by": pr["bound_by"], "library_ms": None,
+        "fused_step_kernels": n_step}]}), flush=True)
     print(f"card: {_card_line()}", flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

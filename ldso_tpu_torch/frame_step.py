@@ -62,9 +62,7 @@ def _track_pyr(pyr, gsq, ref, T_last, T_prelast, ab0, intr, new_exposure, cfg):
     """Tracking body on a built pyramid."""
     # constant-velocity prediction from the previous two refToNew poses
     with telemetry.span("predict"):
-        vel = lie.se3_mul(T_last, lie.se3_inverse(T_prelast))
-        T_cv = lie.se3_mul(vel, T_last)
-        hyps = tracker.motion_hypotheses(T_cv, num=cfg.shapes.num_hypotheses)
+        hyps = tracker.predict_hypotheses(T_last, T_prelast, cfg.shapes.num_hypotheses)
     with telemetry.span("track"):
         tr = tracker.track_frame(pyr, ref, hyps, ab0, intr, cfg)
 

@@ -19,6 +19,11 @@ takes ``track_level_torch``, the plain version: the batch dimension
 written out, every update masked with the per-lane ``active`` flag, and a
 host loop that runs until no lane is active or the iteration budget is
 spent, so the same hypothesis wins. There is no fallback between the two.
+
+The hypotheses come from ``predict_hypotheses`` the same way: on the card
+one launch of ``csrc/predict.cu`` (``kernels/predict.py``) makes the
+constant-velocity pose and every hypothesis, on CPU tensors the plain
+chain ``predict_hypotheses_torch`` (``motion_hypotheses``).
 """
 
 from __future__ import annotations
@@ -356,6 +361,28 @@ def _hypothesis_deltas(dev) -> torch.Tensor:
         deltas = _HYP_DELTAS.setdefault(
             key, torch.tensor(rows, dtype=torch.float32, device=dev))
     return deltas
+
+
+def predict_hypotheses(T_last, T_prelast, num: int) -> torch.Tensor:
+    """[num, 4, 4] initial guesses around the constant-velocity prediction
+    (T_last T_prelast^-1) T_last of the last two refToNew poses [4, 4]: the
+    plain chain ``predict_hypotheses_torch`` for CPU tensors, the CUDA
+    kernel (one launch, ``kernels/predict.predict_hypotheses_cuda``, the
+    chain's bits) for CUDA tensors. There is no fallback between the two."""
+    if T_last.device.type == "cpu":
+        return predict_hypotheses_torch(T_last, T_prelast, num)
+    if T_last.device.type == "cuda":
+        from ldso_tpu_torch.kernels.predict import predict_hypotheses_cuda
+
+        return predict_hypotheses_cuda(T_last, T_prelast, num)
+    raise ValueError(f"no motion prediction for device {T_last.device}")
+
+
+def predict_hypotheses_torch(T_last, T_prelast, num: int) -> torch.Tensor:
+    """The plain version of the prediction kernel, and its yardstick on the
+    card: ``motion_hypotheses`` of the constant-velocity pose."""
+    T_cv = lie.se3_mul(lie.se3_mul(T_last, lie.se3_inverse(T_prelast)), T_last)
+    return motion_hypotheses(T_cv, num)
 
 
 def motion_hypotheses(T_const_vel, num: int = 27) -> torch.Tensor:

@@ -16,8 +16,12 @@ exponential times T_eval, se3_inverse's R^T t, the activation's einsum
 adjoint's hat(t) R, and the trace's T_new_cw @ T_all^-1. A line per product
 lists the slot counts each order matches; a product whose order at some F
 is not the kernels' is listed as a mismatch (the kernels' tables then part
-from the plain versions' there). Runs on the card (``--device cuda``, the
-default) or on this CPU.
+from the plain versions' there). Then the motion prediction's (K7,
+``csrc/predict.cu``) products and reductions of one pose, each on 256
+random operands: se3_inverse's R^T t, the product of two poses,
+so3_left_jacobian's K K, torch.sum of three squares and torch.linalg.norm
+of a quaternion, against lie.cuh's ``OneRules`` and ``log34`` (``PREDICT``).
+Runs on the card (``--device cuda``, the default) or on this CPU.
 """
 
 from __future__ import annotations
@@ -88,6 +92,72 @@ def _products(F: int, dev) -> dict:
     return out
 
 
+# the motion prediction's products and reductions of one pose (lie.cuh's
+# OneRules and log34): the order each takes on the card
+PREDICT = {"inv1": "split", "mul1": "split", "kk1": "split", "sum3": "x0x2", "norm4": "tree2"}
+# the orders of a torch.sum of 3 rounded squares and of the 4 of
+# torch.linalg.norm: "seq" adds in index order, "x0x2" (x0 + x2) + x1,
+# "tree" (x0 + x1) + (x2 + x3), "tree2" (x0 + x2) + (x1 + x3); "fma" and
+# "split" as for the products
+SUMS = {"seq": lambda r: sum(r[1:], r[0]), "x0x2": lambda r: (r[0] + r[2]) + r[1],
+        "tree": lambda r: (r[0] + r[1]) + (r[2] + r[3]),
+        "tree2": lambda r: (r[0] + r[2]) + (r[1] + r[3])}
+PREDICT_MODES = {"inv1": MODES, "mul1": MODES, "kk1": MODES, "sum3": ("seq", "x0x2", "fma"),
+                 "norm4": ("seq", "tree", "tree2", "fma", "split")}
+
+
+def predict_matches(dev, n: int = 256) -> dict:
+    """{name: the orders that give torch's result bit for bit} for the
+    prediction's un-batched products (se3_inverse's R^T t, the products of
+    two [4, 4] poses, so3_left_jacobian's K K) and its reductions (the 3
+    squares of torch.sum, the quaternion's 4 of torch.linalg.norm), each
+    taken on ``n`` random operands one call at a time, as the prediction
+    takes them."""
+    import numpy as np
+    import torch
+    import table_replay as tr
+
+    from ldso_tpu_torch.math import lie
+
+    rng = np.random.default_rng(2026)
+    f32 = dict(dtype=torch.float32, device=dev)
+    cases = {k: ([], []) for k in PREDICT_MODES}
+    for _ in range(n):
+        A, B = (lie.se3_exp(torch.as_tensor(rng.normal(size=6), **f32)) for _ in range(2))
+        R, t = B[:3, :3], B[:3, 3]
+        phi = torch.as_tensor(rng.normal(size=3), **f32)
+        K = lie.hat(phi)
+        q = torch.as_tensor(rng.normal(size=4), **f32)
+        for name, ref, terms in (
+                ("inv1", (R.transpose(-1, -2) @ t[..., None])[:, 0],
+                 [[(R[j, i], t[j]) for j in range(3)] for i in range(3)]),
+                ("mul1", A @ B, [[(A[i, j], B[j, k]) for j in range(4)]
+                                 for i in range(4) for k in range(4)]),
+                ("kk1", K @ K, [[(K[i, j], K[j, k]) for j in range(3)]
+                                for i in range(3) for k in range(3)]),
+                ("sum3", torch.sum(phi * phi, dim=-1), [[(phi[j], phi[j]) for j in range(3)]]),
+                ("norm4", torch.linalg.norm(q, dim=-1, keepdim=True),
+                 [[(q[j], q[j]) for j in range(4)]])):
+            cases[name][0].append(ref.reshape(-1))
+            cases[name][1].append(terms)
+    found = {}
+    for name, (refs, terms) in cases.items():
+        ref = torch.cat(refs)
+        ok = []
+        for mode in PREDICT_MODES[name]:
+            if mode in SUMS:
+                got = [SUMS[mode]([a * b for a, b in entry]) for ts in terms for entry in ts]
+            else:
+                got = [tr.dot(entry, mode) for ts in terms for entry in ts]
+            got = torch.stack(got)
+            if name == "norm4":
+                got = torch.sqrt(got)
+            if torch.equal(got.view(torch.int32), ref.view(torch.int32)):
+                ok.append(mode)
+        found[name] = ok
+    return found
+
+
 def matches(F: int, dev) -> dict:
     """{product: the orders that give torch's result bit for bit at F}."""
     import torch
@@ -128,6 +198,11 @@ def main() -> int:
             bad += [f"{name} at F = {F} ({KERNEL[name](F)} written, torch "
                     f"{'/'.join(per_f[F][name]) or 'none'})"
                     for F in per_f if KERNEL[name](F) not in per_f[F][name]]
+    found = predict_matches(dev)
+    for name, ok in found.items():
+        print(f"predict {name}: {'/'.join(ok) or 'no order'}", flush=True)
+        if a.device == "cuda" and PREDICT[name] not in ok:
+            bad.append(f"predict {name} ({PREDICT[name]} written, torch {'/'.join(ok) or 'none'})")
     if a.device == "cuda":
         print("kernel rules: " + ("all match" if not bad else "MISMATCH " + "; ".join(bad)),
               flush=True)
